@@ -1,0 +1,120 @@
+"""Attention with the paper's features folded in (port of
+``repro.core.attention``).
+
+``self_attention_pssa``        — materializing PSSA self-attention (the
+                                 paper's baseline dataflow and the stats
+                                 oracle).
+``self_attention_pssa_fused``  — the same contract through the PSSA kernel:
+                                 the score matrix never exists in memory and
+                                 the stats come from its integer counters.
+``cross_attention_tips``       — materializing cross-attention + CAS.
+``cross_attention_tips_fused`` — the same through the cross-attention
+                                 kernel; spotting runs downstream on the
+                                 head-averaged CAS, shared with the
+                                 reference (``_spot_and_slice``).
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import pssa, precision as precision_mod, tips
+from repro_torch.kernels.cross_attention_tips.ops import cross_attention_cas
+from repro_torch.kernels.pssa_attention.ops import pssa_attention
+
+
+class SelfAttnOut(NamedTuple):
+    out: torch.Tensor
+    stats: pssa.PSSAStats
+
+
+def self_attention_pssa(q, k, v, patch: int,
+                        threshold=pssa.DEFAULT_THRESHOLD,
+                        prune_scores: bool = True,
+                        stats_rows: int | None = None,
+                        reference_stats: bool = False) -> SelfAttnOut:
+    """(B, H, T, d) q/k/v -> (B, H, T, d); scores pruned at ``threshold``.
+
+    ``stats_rows`` limits the accounting to the first N batch rows (the
+    cond half under fused CFG).  A (B,) ``threshold`` tensor prunes each
+    batch row at its own threshold.
+    """
+    d = q.shape[-1]
+    if isinstance(threshold, torch.Tensor) and threshold.ndim == 1:
+        threshold = threshold.reshape(threshold.shape[0], 1, 1, 1)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(float(d))
+    probs = torch.softmax(scores, dim=-1)
+    probs_used = pssa.prune(probs, threshold) if prune_scores else probs
+    probs_stat = probs if stats_rows is None else probs[:stats_rows]
+    thr_stat = threshold
+    if (stats_rows is not None and isinstance(threshold, torch.Tensor)
+            and threshold.ndim == 4):
+        thr_stat = threshold[:stats_rows]
+    compress = (pssa.compress_stats_reference if reference_stats
+                else pssa.compress_stats)
+    stats = compress(probs_stat, patch, thr_stat)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs_used, v)
+    return SelfAttnOut(out=out, stats=stats)
+
+
+def self_attention_pssa_fused(q, k, v, patch: int,
+                              threshold: float = pssa.DEFAULT_THRESHOLD,
+                              stats_rows: int | None = None) -> SelfAttnOut:
+    """``self_attention_pssa`` through the PSSA kernel (always prunes)."""
+    b, h, t, d = q.shape
+    out, nnz_rows, xor_rows = pssa_attention(q, k, v, threshold, patch=patch)
+    rows = b if stats_rows is None else stats_rows
+    nnz = nnz_rows[:rows].sum(dtype=torch.int64)
+    ones_xor = xor_rows[:rows].sum(dtype=torch.int64)
+    stats = pssa.stats_from_counters(nnz, ones_xor, lead=rows * h,
+                                     tq=t, tk=t, patch=patch)
+    return SelfAttnOut(out=out, stats=stats)
+
+
+class CrossAttnOut(NamedTuple):
+    out: torch.Tensor
+    tips_result: tips.TIPSResult   # reported stats (cond rows under CFG)
+    important_full: torch.Tensor   # full-batch mask for the FFN precision
+
+
+def _spot_and_slice(cas, precision, stats_rows: int | None):
+    """Shared spotting tail of both cross-attention implementations.
+
+    Returns (reported TIPSResult, full-batch importance mask); with
+    ``stats_rows`` the reported stats cover the first N rows only.
+    """
+    spotted = precision_mod.spot_cas(cas, precision)
+    important_full = spotted.important
+    if stats_rows is not None:
+        imp = spotted.important[:stats_rows]
+        spotted = tips.TIPSResult(
+            important=imp, cas=spotted.cas[:stats_rows],
+            low_precision_ratio=1.0 - imp.to(torch.float32).mean())
+    return spotted, important_full
+
+
+def cross_attention_tips(q, k_text, v_text, precision,
+                         stats_rows: int | None = None) -> CrossAttnOut:
+    """(B, H, Tq, d) pixel queries x (B, H, Tk, d) text keys, with TIPS."""
+    d = q.shape[-1]
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k_text) / math.sqrt(float(d))
+    probs = torch.softmax(scores, dim=-1)
+    cas = probs[..., :, precision.cls_index].mean(dim=-2)       # (B, Tq)
+    spotted, important_full = _spot_and_slice(cas, precision, stats_rows)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v_text)
+    return CrossAttnOut(out=out, tips_result=spotted,
+                        important_full=important_full)
+
+
+def cross_attention_tips_fused(q, k_text, v_text, precision,
+                               stats_rows: int | None = None
+                               ) -> CrossAttnOut:
+    """``cross_attention_tips`` through the cross-attention kernel."""
+    out, cas_bh = cross_attention_cas(q, k_text, v_text,
+                                      cls_index=precision.cls_index)
+    cas = cas_bh.mean(dim=-2)                                   # (B, Tq)
+    spotted, important_full = _spot_and_slice(cas, precision, stats_rows)
+    return CrossAttnOut(out=out, tips_result=spotted,
+                        important_full=important_full)

@@ -1,0 +1,46 @@
+"""Public op: float-in/float-out DBSC matmul (quantize -> kernel -> rescale).
+
+The paper's full datapath: INT12 activation quantization on ONE per-tensor
+scale (so TIPS rows can drop to the INT6 grid of the same scale), the
+bit-slice split, the integer matmul, and the output rescale.  A CUDA tensor
+goes through the hand-written kernel, a CPU tensor through the plain
+version; the integers are identical either way.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import quant
+from repro_torch.kernels.bitslice_matmul.kernel import (DATAFLOWS,
+                                                       bitslice_matmul_kernel)
+from repro_torch.kernels.bitslice_matmul.ref import bitslice_matmul_ref
+
+
+def bitslice_matmul(x: torch.Tensor, w: torch.Tensor,
+                    important: torch.Tensor | None = None,
+                    dataflow: str = "weight_stationary") -> torch.Tensor:
+    """``x (M, K) @ w (K, N)`` through the DBSC integer datapath.
+
+    ``important``: bool (M,) TIPS mask; None -> every row INT12.
+    ``dataflow``: the DBSC stationary mode (the same integers either way).
+    """
+    if dataflow not in DATAFLOWS:
+        raise ValueError(f"bitslice_matmul: dataflow={dataflow!r}, "
+                         f"expected one of {tuple(DATAFLOWS)}")
+    m = x.shape[0]
+    qx = quant.quantize_act(x, quant.ACT_BITS_HIGH)
+    qw = quant.quantize_weight(w)
+    if important is None:
+        vals = qx.values
+        prec = torch.ones((m, 1), dtype=torch.int32, device=x.device)
+    else:
+        vals = quant.mixed_precision_quantize(x, important, qx.scale).values
+        prec = important.to(torch.int32)[:, None].contiguous()
+    hi, lo = quant.bitslice_split(vals)
+    if x.is_cuda:
+        acc = bitslice_matmul_kernel(hi.contiguous(), lo.contiguous(),
+                                     qw.values.contiguous(), prec,
+                                     dataflow=dataflow)
+    else:
+        acc = bitslice_matmul_ref(hi, lo, qw.values, prec)
+    return acc.to(torch.float32) * (qx.scale * qw.scale)

@@ -1,0 +1,32 @@
+"""Public op: cross-attention with the CAS side output over (B, H, Tq, d).
+
+A CUDA tensor goes through the hand-written kernel, which holds the whole
+text stripe and masks keys past Tk itself (the JAX package pads them to a
+multiple of 8 for the TPU's sublanes; the CUDA kernel needs no padding); a
+CPU tensor goes through the plain PyTorch version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.cross_attention_tips.kernel import (
+    cross_attention_tips_kernel)
+from repro_torch.kernels.cross_attention_tips.ref import (
+    cross_attention_tips_ref)
+
+
+def cross_attention_cas(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        cls_index: int = 0):
+    """(B, H, Tq, d) q x (B, H, Tk, d) text k/v -> (out (B, H, Tq, d),
+    cas (B, H, Tq)), ``cas`` the per-head softmax mass on key
+    ``cls_index``."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    qf = q.reshape(b * h, tq, d).contiguous()
+    kf = k.reshape(b * h, tk, d).contiguous()
+    vf = v.reshape(b * h, tk, d).contiguous()
+    if q.is_cuda:
+        out, cas = cross_attention_tips_kernel(qf, kf, vf, cls_index)
+    else:
+        out, cas = cross_attention_tips_ref(qf, kf, vf, cls_index)
+    return out.reshape(b, h, tq, d), cas.reshape(b, h, tq)

@@ -1,0 +1,144 @@
+"""Kernel dispatch: one policy object routes every hot-path op (port of
+``repro.kernels.dispatch``).
+
+  self_attention   reference | fused    PSSA-pruned self-attention + stats
+  cross_attention  reference | fused    text cross-attention + TIPS CAS
+  ffn              reference | dbsc     GEGLU FFN (TIPS mixed precision)
+
+``fused`` and ``dbsc`` run the hand-written kernels on a CUDA tensor and
+their plain PyTorch versions on a CPU tensor.  Stats parity (DESIGN.md §5):
+for any policy the reported counters equal the reference path's.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import attention, tips
+from repro_torch.kernels.bitslice_matmul.ops import bitslice_matmul
+from repro_torch.kernels.runtime import resolve_device
+
+_CHOICES = {
+    "self_attention": ("reference", "fused"),
+    "cross_attention": ("reference", "fused"),
+    "ffn": ("reference", "dbsc"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPolicy:
+    """Which implementation each hot-path op dispatches to."""
+    self_attention: str = "reference"
+    cross_attention: str = "reference"
+    ffn: str = "reference"
+
+    def __post_init__(self):
+        for op, allowed in _CHOICES.items():
+            val = getattr(self, op)
+            if val not in allowed:
+                raise ValueError(
+                    f"KernelPolicy.{op}={val!r}: expected one of {allowed}")
+
+    @classmethod
+    def reference(cls) -> "KernelPolicy":
+        """Plain PyTorch everywhere (the materializing path)."""
+        return cls()
+
+    @classmethod
+    def fused(cls) -> "KernelPolicy":
+        """Both attentions through their kernels; the FFN stays on the
+        float reference (DBSC is a precision feature, selected by ``ffn``)."""
+        return cls(self_attention="fused", cross_attention="fused")
+
+    @classmethod
+    def auto(cls, device=None) -> "KernelPolicy":
+        """``fused`` + ``dbsc`` when ``device`` is the card, else reference."""
+        if resolve_device(device).type == "cuda":
+            return cls(self_attention="fused", cross_attention="fused",
+                       ffn="dbsc")
+        return cls.reference()
+
+
+def _ffn_mid_covered(precision, important):
+    return (important is not None and precision is not None
+            and precision.ffn_mid)
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")      # jax.nn.gelu's default
+
+
+def _ffn_reference(hn, p, important, precision=None):
+    """GEGLU FFN, float matmuls; TIPS rows fake-quantized (per sample)."""
+    if important is not None:
+        hn = tips.apply_precision_mask(hn, important)
+    gu = torch.einsum("btc,cd->btd", hn, p["ff_geglu"]["w"]) \
+        + p["ff_geglu"]["b"]
+    g, u = torch.chunk(gu, 2, dim=-1)
+    mid = _gelu(g) * u
+    if _ffn_mid_covered(precision, important):
+        mid = tips.apply_precision_mask(mid, important)
+    return torch.einsum("btd,dc->btc", mid, p["ff_out"]["w"]) \
+        + p["ff_out"]["b"]
+
+
+def _ffn_dbsc(hn, p, important, precision=None):
+    """Both FFN matmuls through the DBSC bit-slice integer datapath; one
+    per-tensor activation scale over the whole (B*T, C) matrix."""
+    b, t, c = hn.shape
+    bt = b * t
+    imp_flat = important.reshape(bt) if important is not None else None
+    gu = bitslice_matmul(hn.reshape(bt, c), p["ff_geglu"]["w"],
+                         important=imp_flat).reshape(b, t, -1) \
+        + p["ff_geglu"]["b"]
+    g, u = torch.chunk(gu, 2, dim=-1)
+    mid = _gelu(g) * u
+    mid_imp = imp_flat if _ffn_mid_covered(precision, important) else None
+    return bitslice_matmul(mid.reshape(bt, mid.shape[-1]), p["ff_out"]["w"],
+                           important=mid_imp).reshape(b, t, c) \
+        + p["ff_out"]["b"]
+
+
+_FFN = {"reference": _ffn_reference, "dbsc": _ffn_dbsc}
+
+
+def self_attention(policy: KernelPolicy, q, k, v, *, patch: int,
+                   threshold, prune_scores: bool = True,
+                   stats_rows: int | None = None,
+                   reference_stats: bool = False) -> attention.SelfAttnOut:
+    """PSSA self-attention via the policy's implementation.
+
+    Three combinations take the materializing reference whatever the
+    policy: ``reference_stats`` (the seed stats oracle), ``prune_scores``
+    False (the kernel always prunes), and a per-row ``threshold`` tensor
+    (the kernel takes one scalar threshold).
+    """
+    impl = policy.self_attention
+    per_row = isinstance(threshold, torch.Tensor) and threshold.ndim >= 1
+    if impl == "fused" and (reference_stats or not prune_scores or per_row):
+        impl = "reference"
+    if impl == "fused":
+        return attention.self_attention_pssa_fused(
+            q, k, v, patch=patch, threshold=threshold, stats_rows=stats_rows)
+    return attention.self_attention_pssa(
+        q, k, v, patch=patch, threshold=threshold,
+        prune_scores=prune_scores, stats_rows=stats_rows,
+        reference_stats=reference_stats)
+
+
+def cross_attention(policy: KernelPolicy, q, k_text, v_text, *,
+                    precision, stats_rows: int | None = None
+                    ) -> attention.CrossAttnOut:
+    """Cross-attention + TIPS spotting via the policy's implementation."""
+    if policy.cross_attention == "fused":
+        return attention.cross_attention_tips_fused(
+            q, k_text, v_text, precision=precision, stats_rows=stats_rows)
+    return attention.cross_attention_tips(
+        q, k_text, v_text, precision=precision, stats_rows=stats_rows)
+
+
+def ffn_geglu(policy: KernelPolicy, hn, p, important, precision=None):
+    """(B, T, C) normed hidden -> (B, T, C) FFN output (pre-residual)."""
+    return _FFN[policy.ffn](hn, p, important, precision)

@@ -1,0 +1,57 @@
+"""Launch wrapper of the hand-written PSSA attention kernel
+(``csrc/pssa_attention.cu``; replaces the TPU kernel
+``repro/kernels/pssa_attention/kernel.py: pssa_attention_kernel``)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.runtime import launch_counter
+
+LAUNCHES = launch_counter("pssa_attention")
+BLOCK_K = 64          # key tile of the CUDA kernel; patches must divide it
+MAX_HEAD_DIM = 160
+
+
+def _check(name, x, dtype, shape):
+    if not x.is_cuda:
+        raise ValueError(f"pssa_attention: {name} must be a CUDA tensor")
+    if x.dtype != dtype:
+        raise ValueError(f"pssa_attention: {name} must be {dtype}, "
+                         f"got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"pssa_attention: {name} has shape "
+                         f"{tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"pssa_attention: {name} must be contiguous")
+
+
+def pssa_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          threshold: float, patch: int):
+    """(BH, Tq, d) q x (BH, Tk, d) k/v on the card -> (out, nnz, xor_ones).
+
+    Launches the CUDA kernel or raises; there is no other route.
+    """
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    _check("q", q, torch.float32, (bh, tq, d))
+    _check("k", k, torch.float32, (bh, tk, d))
+    _check("v", v, torch.float32, (bh, tk, d))
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"pssa_attention: head dim {d} outside "
+                         f"[1, {MAX_HEAD_DIM}]")
+    if BLOCK_K % patch or tk % patch:
+        raise ValueError(f"pssa_attention: patch {patch} must divide the "
+                         f"key tile {BLOCK_K} and the key length {tk}")
+    lib = build.library()
+    out = torch.empty_like(q)
+    nnz = torch.empty((bh, tq), dtype=torch.int32, device=q.device)
+    xor_ones = torch.empty((bh, tq), dtype=torch.int32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.launch_pssa_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        nnz.data_ptr(), xor_ones.data_ptr(), bh, tq, tk, tk, d, patch,
+        1.0 / (d ** 0.5), threshold, stream)
+    build.check(err, "pssa_attention")
+    LAUNCHES.bump()
+    return out, nnz, xor_ones

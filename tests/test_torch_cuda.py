@@ -1,0 +1,94 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card.  Imports no JAX, so it runs where the port runs:
+
+    PYTHONPATH=src python -m pytest -q -m requires_cuda tests/test_torch_cuda.py
+
+Without a CUDA device every test skips.  Tolerances: PSSA counters and
+DBSC integers exact (these shapes hold no score within an ulp of the
+threshold); attention outputs rtol 1e-4, atol 1e-5 and CAS atol 1e-6
+(float32 in another summation order).
+"""
+import pytest
+import torch
+
+from repro_torch.configs import bk_sdm
+from repro_torch.diffusion.engine import DiffusionEngine
+from repro_torch.kernels import runtime
+from repro_torch.kernels.bitslice_matmul.kernel import bitslice_matmul_kernel
+from repro_torch.kernels.bitslice_matmul.ref import bitslice_matmul_ref
+from repro_torch.kernels.cross_attention_tips.kernel import (
+    cross_attention_tips_kernel)
+from repro_torch.kernels.cross_attention_tips.ref import (
+    cross_attention_tips_ref)
+from repro_torch.kernels.dispatch import KernelPolicy
+from repro_torch.kernels.pssa_attention.kernel import pssa_attention_kernel
+from repro_torch.kernels.pssa_attention.ref import pssa_attention_stats_ref
+
+THR = 1.0 / 8192.0
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run only "
+                    "on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bh,t,d,patch", [(4, 256, 40, 16), (2, 48, 8, 16),
+                                          (2, 128, 160, 64)])
+def test_pssa_kernel_matches_plain(cuda, bh, t, d, patch):
+    g = torch.Generator(device=cuda).manual_seed(t + d)
+    q, k, v = (torch.randn((bh, t, d), generator=g, device=cuda)
+               for _ in range(3))
+    out, nnz, xr = pssa_attention_kernel(q, k, v, THR, patch)
+    out_p, nnz_p, xr_p = pssa_attention_stats_ref(q, k, v, THR, patch)
+    assert torch.equal(nnz, nnz_p) and torch.equal(xr, xr_p)
+    torch.testing.assert_close(out, out_p, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bh,tq,tk,d", [(4, 256, 77, 40), (2, 100, 7, 8)])
+def test_cross_kernel_matches_plain(cuda, bh, tq, tk, d):
+    g = torch.Generator(device=cuda).manual_seed(tq + tk)
+    q = torch.randn((bh, tq, d), generator=g, device=cuda)
+    k, v = (torch.randn((bh, tk, d), generator=g, device=cuda)
+            for _ in range(2))
+    out, cas = cross_attention_tips_kernel(q, k, v)
+    out_p, cas_p = cross_attention_tips_ref(q, k, v)
+    torch.testing.assert_close(out, out_p, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(cas, cas_p, rtol=0, atol=1e-6)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dataflow", ["weight_stationary",
+                                      "input_stationary"])
+def test_bitslice_kernel_matches_plain(cuda, dataflow):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    hi, lo = (torch.randint(0, 64, (100, 77), generator=g, device=cuda,
+                            dtype=torch.int32) for _ in range(2))
+    w = torch.randint(-128, 128, (77, 50), generator=g, device=cuda,
+                      dtype=torch.int32)
+    prec = torch.randint(0, 2, (100, 1), generator=g, device=cuda,
+                         dtype=torch.int32)
+    assert torch.equal(bitslice_matmul_kernel(hi, lo, w, prec, dataflow),
+                       bitslice_matmul_ref(hi, lo, w, prec))
+
+
+@pytest.mark.requires_cuda
+def test_smoke_engine_goes_through_the_kernels(cuda):
+    cfg = bk_sdm.with_kernel_policy(
+        bk_sdm.SMOKE, KernelPolicy(self_attention="fused",
+                                   cross_attention="fused", ffn="dbsc"))
+    eng = DiffusionEngine(cfg)
+    toks = torch.zeros((1, cfg.text.max_len), dtype=torch.int32,
+                       device=cuda)
+    runtime.reset_launch_counts()
+    out = eng.generate(toks)
+    steps, blocks = cfg.ddim.num_inference_steps, 9
+    counts = runtime.launch_counts()
+    assert counts["pssa_attention"] == steps * blocks
+    assert counts["cross_attention_tips"] == steps * blocks
+    assert counts["bitslice_matmul"] == 2 * steps * blocks
+    assert bool(torch.isfinite(out.images).all())

@@ -1,0 +1,96 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+nothing of JAX or of the JAX package, and the port never runs on the CPU
+unless asked to."""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+import repro_torch.diffusion.engine
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "repro"
+             or n.startswith("repro."))
+print("MODULES", len([n for n in sys.modules if n.startswith("repro_torch")]))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
+    assert int(lines["MODULES"]) > 20
+    assert lines["BAD"] == "[]", lines["BAD"]
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_jax_or_repro_import_statements(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_default_device_is_the_card_and_raises_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from repro_torch.configs.bk_sdm import SMOKE
+    from repro_torch.diffusion.engine import DiffusionEngine
+    from repro_torch.diffusion.pipeline import StableDiffusionPipeline
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DiffusionEngine(SMOKE)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StableDiffusionPipeline(SMOKE)
+    assert DiffusionEngine(SMOKE, device="cpu").device.type == "cpu"
+
+
+def test_chip_smoke_fails_without_card_or_alone(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    here = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=ROOT)
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    alone = subprocess.run([sys.executable, "chip_smoke.py"],
+                           capture_output=True, text=True, timeout=300,
+                           cwd=tmp_path)
+    for run in (here, alone):
+        assert run.returncode != 0
+        assert '"ok": true' not in run.stdout
+
+
+def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
+    import repro_torch.kernels.build as build
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path / "kernels")
+    with pytest.raises(build.KernelBuildError, match="nvcc not found"):
+        build.build()
+    assert len(build.source_hash()) == 16
+    assert [p.name for p in build.sources()] == [
+        "bitslice_matmul.cu", "cross_attention_tips.cu",
+        "pssa_attention.cu"]
