@@ -11,15 +11,29 @@ no result line):
 3. kernels     — each hand-written kernel at every shape the main path
                  gives it (plus a ragged case) against its plain PyTorch
                  version on the card, with times, bounds and tolerances;
+                 PSSA also with gathered queries (Tq = T/8, the edit path);
 4. slice       — full-width BK-SDM-Tiny text-to-image, 25 DDIM steps at
                  guidance 7.5, through ``DiffusionEngine.generate`` on the
                  kernel route; launch counters must read 225/225/450;
-5. parity      — two full-width steps from the same latents, route against
+5. bitmap      — the PSXU entry point ``dispatch.patch_bitmap`` on the
+                 pruned SAS of one cond row at res 64/32/16 (full-width
+                 weights): kernel against plain bit for bit, per-row sums
+                 of the counts against the PSSA popcount, 3 launches;
+6. temporal    — the slice with temporal patch reuse: threshold 0 equals
+                 the dense latents (as far as a dense witness agrees with
+                 itself), threshold 0.05 launches 225/225/450/225;
+7. edit        — img2img replay at capacity 1/8 against recorded base
+                 caches: the same input computes nothing and returns the
+                 base latents; a re-noised window stays within the cap and
+                 runs PSSA on T/8 queries; an a-priori window runs no
+                 patch delta;
+8. parity      — two full-width steps from the same latents, route against
                  route: the reference policy against the fused attention
                  kernels, then reference attention + DBSC against the
-                 slice's route (fused + DBSC) on three seeds; latents,
-                 ledger headlines and per-layer PSSA counters must agree
-                 within the limits below.
+                 slice's route (fused + DBSC) on three seeds, then the
+                 reference route against the fused route with temporal
+                 reuse; latents, ledger headlines and per-layer PSSA and
+                 reuse counters must agree within the limits below.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
@@ -61,6 +75,11 @@ LEDGER_RTOL = 1e-6          # parity: ledger headlines, relative
 DBSC_LATENT_ATOL = 1e-2
 DBSC_COUNTER_SCALE = 4.0    # times the per-layer counter bound
 DBSC_SEEDS = (11, 21, 31)
+REUSE_THRESHOLD = 0.05      # ReusePolicy.temporal() / .edit() default
+REUSE_TIE_REL = 1e-3        # |delta - thr| / thr at a flipped patch: a tie
+EDIT_CAPACITY = 0.125
+EDIT_WINDOW = (4, 4, 8, 8)  # latent pixels (y0, x0, h, w) re-noised
+L2_BYTES = 50e6             # H100 L2: timed inputs rotate past it
 
 REPLACES = {
     "pssa_attention":
@@ -69,6 +88,10 @@ REPLACES = {
         "src/repro/kernels/cross_attention_tips/kernel.py:98",
     "bitslice_matmul":
         "src/repro/kernels/bitslice_matmul/kernel.py:87",
+    "patch_delta":
+        "src/repro/kernels/patch_reuse/kernel.py:40",
+    "patch_bitmap":
+        "src/repro/kernels/patch_bitmap/kernel.py:58",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 
@@ -125,6 +148,38 @@ def bound(bytes_moved: float, ops: float, rate: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rotating_ms(torch, fn, sets, reps: int = 30, warmup: int = 3) -> float:
+    """Mean milliseconds of ``fn(*args)`` by CUDA events, the calls cycling
+    through ``sets`` of inputs that together exceed the L2 cache, so each
+    call reads its inputs from device memory as the main path does.
+
+    A kernel of a few microseconds takes less time on the card than its
+    launch takes on the host, so the stream is first held by a 20 ms
+    ``torch.cuda._sleep`` while the host queues every call: the events
+    then time the calls back to back on the card."""
+    for i in range(warmup):
+        fn(*sets[i % len(sets)])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e-2 * 1.98e9))   # ~20 ms at the boost clock
+    start.record()
+    for i in range(reps):
+        fn(*sets[i % len(sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal float32 tensors bit for bit, NaN where NaN (its payload
+    aside)."""
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan].view(torch.int32),
+                            b[~nan].view(torch.int32)))
 
 
 def kernel_keep_bits(torch, q, k, bh, r, patch):
@@ -216,48 +271,44 @@ def check_pssa(torch, label, q, k, patch, kern, plain, exact: bool):
     return err
 
 
-@phase("kernels")
-def kernels_phase(torch):
-    from repro_torch.core.precision import PrecisionPolicy, spot_cas
-    from repro_torch.kernels.bitslice_matmul.kernel import (
-        bitslice_matmul_kernel)
-    from repro_torch.kernels.bitslice_matmul.ref import bitslice_matmul_ref
-    from repro_torch.kernels.cross_attention_tips.kernel import (
-        cross_attention_tips_kernel)
-    from repro_torch.kernels.cross_attention_tips.ref import (
-        cross_attention_tips_ref)
+def kernel_row(rows, name, label, shape, ms, plain_ms, b, err, main,
+               library_ms=None):
+    """Print one timed shape; keep it as the kernel's row if ``main``."""
+    lib = "null" if library_ms is None else f"{library_ms:.4f}"
+    print(f"kernel {name} {label} shape={shape} kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={b[0]:.4f} "
+          f"bound_by={b[1]} library_ms={lib} max_abs_err={err:.3e}",
+          flush=True)
+    if main:
+        rows[name] = {"name": name, "route": "cuda",
+                      "source": SOURCES[name],
+                      "replaces": REPLACES[name], "shape": shape,
+                      "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": b[0],
+                      "bound_by": b[1], "library_ms": library_ms}
+
+
+def pssa_rows(torch, g) -> dict:
+    """PSSA kernel against plain at every main-path shape, the gathered
+    queries of the edit path included (Tq = T/8 against Tk = T)."""
     from repro_torch.kernels.pssa_attention.kernel import (
         pssa_attention_kernel)
     from repro_torch.kernels.pssa_attention.ref import (
         pssa_attention_stats_ref)
     from repro_torch.kernels.runtime import cuda_ms
-
-    g = torch.Generator(device="cuda").manual_seed(1234)
-    dev = "cuda"
     rows = {}
-
-    def record(name, label, shape, ms, plain_ms, b, err, main):
-        print(f"kernel {name} {label} shape={shape} kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={b[0]:.4f} "
-              f"bound_by={b[1]} library_ms=null max_abs_err={err:.3e}",
-              flush=True)
-        if main:
-            rows[name] = {"name": name, "route": "cuda",
-                          "source": SOURCES[name],
-                          "replaces": REPLACES[name], "shape": shape,
-                          "max_abs_err": err, "ms": ms,
-                          "plain_ms": plain_ms, "bound_ms": b[0],
-                          "bound_by": b[1], "library_ms": None}
-
-    # -- PSSA self-attention: (label, BH, T, d, patch, exact, main) ------
-    for label, bh, t, d, patch, exact, main in [
-            ("res64 down0.0 cond-only", 8, 4096, 40, 64, False, False),
-            ("res64 up3.*", 16, 4096, 40, 64, False, True),
-            ("res32", 16, 1024, 80, 32, True, False),
-            ("res16", 16, 256, 160, 16, True, False),
-            ("ragged T=48", 2, 48, 40, 16, True, False)]:
-        q, k, v = (torch.randn((bh, t, d), generator=g, device=dev)
-                   for _ in range(3))
+    # (label, BH, Tq, Tk, d, patch, exact, main)
+    for label, bh, tq, tk, d, patch, exact, main in [
+            ("res64 down0.0 cond-only", 8, 4096, 4096, 40, 64, False,
+             False),
+            ("res64 up3.*", 16, 4096, 4096, 40, 64, False, True),
+            ("res32", 16, 1024, 1024, 80, 32, True, False),
+            ("res16", 16, 256, 256, 160, 16, True, False),
+            ("ragged T=48", 2, 48, 48, 40, 16, True, False),
+            ("res64 gathered Tq=T/8", 16, 512, 4096, 40, 64, False, False)]:
+        q = torch.randn((bh, tq, d), generator=g, device="cuda")
+        k, v = (torch.randn((bh, tk, d), generator=g, device="cuda")
+                for _ in range(2))
         kern = pssa_attention_kernel(q, k, v, THRESHOLD, patch)
         torch.cuda.synchronize()
         plain = pssa_attention_stats_ref(q, k, v, THRESHOLD, patch)
@@ -268,11 +319,92 @@ def kernels_phase(torch):
         plain_ms = cuda_ms(pssa_attention_stats_ref, q, k, v, THRESHOLD,
                            patch, reps=3)
         nnz = plain[1].sum().item()
-        ops = 2.0 * bh * t * t * d + 2.0 * nnz * d   # q k^T + kept p @ v
-        nbytes = 4.0 * (4 * bh * t * d + 2 * bh * t)
-        record("pssa_attention", label, [bh, t, d, patch], ms, plain_ms,
-               bound(nbytes, ops, FP32_FLOPS), err, main)
+        ops = 2.0 * bh * tq * tk * d + 2.0 * nnz * d  # q k^T + kept p @ v
+        nbytes = 4.0 * (2 * bh * tq * d + 2 * bh * tk * d + 2 * bh * tq)
+        kernel_row(rows, "pssa_attention", label, [bh, tq, tk, d, patch],
+                   ms, plain_ms, bound(nbytes, ops, FP32_FLOPS), err, main)
         del q, k, v, kern, plain
+    return rows
+
+
+def patch_delta_rows(torch, g, kernel, plain_fn) -> dict:
+    """patch_delta at the four full-width shapes (W = patch * C = 20480;
+    the pre-dup down0.0 block has one row, the others two), a ragged case
+    (P = 7, W = 2050: no float4, a partial chunk) and a NaN/inf case, each
+    equal to the plain version bit for bit.  ``library_ms`` times
+    ``F.pairwise_distance(p=inf, eps=0)``, the same max |x - r| per row."""
+    import torch.nn.functional as F
+    rows = {}
+    for label, b, p, w, main in [
+            ("res64 down0.0 cond-only", 1, 64, 20480, False),
+            ("res64", 2, 64, 20480, True),
+            ("res32", 2, 32, 20480, False),
+            ("res16", 2, 16, 20480, False),
+            ("ragged P=7 W=2050", 3, 7, 2050, False),
+            ("nan and inf", 2, 16, 20480, False)]:
+        set_bytes = 2 * 4 * b * p * w
+        sets = []
+        for _ in range(max(1, math.ceil(2 * L2_BYTES / set_bytes))):
+            x = torch.randn((b, p, w), generator=g, device="cuda")
+            r = x + 0.02 * torch.randn((b, p, w), generator=g,
+                                       device="cuda")
+            r[:, ::5] = x[:, ::5]              # unchanged patches: delta 0
+            sets.append((x, r))
+        x, r = sets[0]
+        if label.startswith("nan"):
+            x[0, 3, 100] = float("nan")
+            r[1, 5, 7] = float("inf")
+            x[1, 9, 2] = float("-nan")
+        out = kernel(x, r)
+        torch.cuda.synchronize()
+        plain = plain_fn(x, r, 1)          # (B, P, W): P one-token patches
+        require(same_bits(torch, out, plain),
+                f"patch_delta {label}: not bit-exact against plain")
+        if label.startswith("nan"):
+            require(bool(torch.isnan(out[0, 3])) and bool(
+                torch.isnan(out[1, 9])) and bool(torch.isinf(out[1, 5])),
+                "patch_delta: NaN or inf did not propagate")
+            print(f"  patch_delta {label}: NaN and inf propagate, "
+                  f"bit-exact elsewhere")
+            continue
+        lib_out = F.pairwise_distance(x.reshape(-1, w), r.reshape(-1, w),
+                                      p=math.inf, eps=0.0).reshape(b, p)
+        lib_err = (lib_out - plain).abs().max().item()
+        print(f"  patch_delta {label}: bit-exact; pairwise_distance "
+              f"max|diff| {lib_err:.3e}")
+        ms = rotating_ms(torch, kernel, sets, reps=60)
+        plain_ms = rotating_ms(torch, lambda a, c: plain_fn(a, c, 1), sets,
+                               reps=20)
+        lib_ms = rotating_ms(
+            torch, lambda a, c: F.pairwise_distance(
+                a.reshape(-1, w), c.reshape(-1, w), p=math.inf, eps=0.0),
+            sets, reps=20)
+        nbytes = 4.0 * (2 * b * p * w + b * p)
+        ops = 3.0 * b * p * w                  # subtract, abs, max
+        kernel_row(rows, "patch_delta", label, [b, p, w], ms, plain_ms,
+                   bound(nbytes, ops, FP32_FLOPS), 0.0, main,
+                   library_ms=lib_ms)
+        del sets, x, r
+    return rows
+
+
+@phase("kernels")
+def kernels_phase(torch):
+    from repro_torch.core.precision import PrecisionPolicy, spot_cas
+    from repro_torch.kernels.bitslice_matmul.kernel import (
+        bitslice_matmul_kernel)
+    from repro_torch.kernels.bitslice_matmul.ref import bitslice_matmul_ref
+    from repro_torch.kernels.cross_attention_tips.kernel import (
+        cross_attention_tips_kernel)
+    from repro_torch.kernels.cross_attention_tips.ref import (
+        cross_attention_tips_ref)
+    from repro_torch.kernels.patch_reuse.kernel import patch_delta_kernel
+    from repro_torch.kernels.patch_reuse.ref import patch_delta_ref
+    from repro_torch.kernels.runtime import cuda_ms
+
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    dev = "cuda"
+    rows = pssa_rows(torch, g)
 
     # -- TIPS cross-attention: (label, BH, Tq, Tk, d, main) --------------
     for label, bh, tq, tk, d, main in [
@@ -310,8 +442,9 @@ def kernels_phase(torch):
         plain_ms = cuda_ms(cross_attention_tips_ref, q, k, v, 0, reps=10)
         ops = 2.0 * 2.0 * bh * tq * tk * d           # q k^T + p @ v
         nbytes = 4.0 * (2 * bh * tq * d + 2 * bh * tk * d + bh * tq)
-        record("cross_attention_tips", label, [bh, tq, tk, d], ms, plain_ms,
-               bound(nbytes, ops, FP32_FLOPS), max(err_o, err_c), main)
+        kernel_row(rows, "cross_attention_tips", label, [bh, tq, tk, d], ms,
+                   plain_ms, bound(nbytes, ops, FP32_FLOPS),
+                   max(err_o, err_c), main)
 
     # -- DBSC bit-slice matmul: (label, M, K, N, main) --------------------
     cases = []
@@ -338,8 +471,8 @@ def kernels_phase(torch):
         plain_ms = cuda_ms(bitslice_matmul_ref, hi, lo, w, prec, reps=5)
         ops = 2.0 * kk * n * (m + prec.sum().item())  # hi rows + kept lo rows
         nbytes = 4.0 * (2 * m * kk + kk * n + m + m * n)
-        record("bitslice_matmul", label, [m, kk, n], ms, plain_ms,
-               bound(nbytes, ops, INT8_OPS), 0.0, main)
+        kernel_row(rows, "bitslice_matmul", label, [m, kk, n], ms, plain_ms,
+                   bound(nbytes, ops, INT8_OPS), 0.0, main)
     # int32 wrap-around: 63 * 127 * 5120 << 6 passes 2**31
     hi = torch.full((64, 5120), 63, dtype=torch.int32, device=dev)
     w = torch.full((5120, 64), 127, dtype=torch.int32, device=dev)
@@ -351,6 +484,9 @@ def kernels_phase(torch):
             f"bitslice_matmul overflow: {int(out[0, 0])} != {expect}")
     print(f"  bitslice_matmul int32 wrap-around case equal "
           f"({int(out[0, 0])})")
+    rows.update(patch_delta_rows(
+        torch, torch.Generator(device="cuda").manual_seed(4321),
+        patch_delta_kernel, patch_delta_ref))
     return rows
 
 
@@ -409,18 +545,23 @@ def slice_phase(torch):
     print("energy_report " + json.dumps(summary))
     require(all(math.isfinite(v) for v in summary.values()),
             "non-finite energy report")
-    profile_breakdown(torch, eng, toks, un, latents)
+    def generate():
+        eng.generate(toks, uncond_tokens=un, latents=latents.clone())
+        return eng.last_wall_s
+    profile_breakdown(torch, generate, "slice")
     return eng, counts
 
 
-def profile_breakdown(torch, eng, toks, un, latents, top: int = 15):
-    """Device time by kernel over one more generate, under torch.profiler
-    (this run's counts and wall time are not the ones reported above)."""
+def profile_breakdown(torch, run, tag: str, top: int = 15):
+    """Device time by kernel over one more ``run()`` (which returns its
+    wall seconds), under torch.profiler; this run's counts and wall time
+    are not the ones reported elsewhere.  "busy" is the union of the
+    device intervals on the timeline, so nested or overlapping events
+    count once; "summed" adds self device time over ``key_averages()``."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.generate(toks, uncond_tokens=un, latents=latents.clone())
-    wall_ms = eng.last_wall_s * 1e3
+        wall_ms = run() * 1e3
     rows = []
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -431,17 +572,332 @@ def profile_breakdown(torch, eng, toks, un, latents, top: int = 15):
             rows.append((dev / 1e3, e.count, e.key))
     total = sum(r[0] for r in rows)
     if total == 0:
-        print("profile: the profiler recorded no device time (not measured)")
+        print(f"profile {tag}: the profiler recorded no device time (not "
+              f"measured)")
         return
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and e.time_range.end > e.time_range.start)
+    busy_us, reach = 0.0, -math.inf
+    for start, end in spans:
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
     rows.sort(reverse=True)
-    print(f"profile: device busy {total:.2f} ms in a {wall_ms:.2f} ms "
-          f"generate with the profiler on ({total / wall_ms:.1%} busy)")
+    print(f"profile {tag}: device busy {busy_us / 1e3:.2f} ms (union of "
+          f"intervals; summed {total:.2f} ms) in a {wall_ms:.2f} ms run "
+          f"with the profiler on ({busy_us / 1e3 / wall_ms:.1%} busy)")
     for name in REPLACES:
         ms = sum(r[0] for r in rows if name + "_kernel" in r[2])
-        print(f"profile: {name} {ms:.2f} ms ({ms / total:.1%} of device "
-              f"time)")
+        print(f"profile {tag}: {name} {ms:.2f} ms ({ms / total:.1%} of "
+              f"device time)")
     for ms, n, key in rows[:top]:
-        print(f"profile:   {ms:9.2f} ms {n:6d}x {key[:110]}")
+        print(f"profile {tag}:   {ms:9.2f} ms {n:6d}x {key[:100]}")
+
+
+def _context(torch, eng, toks, un):
+    """[cond | uncond] text context of the fused-CFG UNet call."""
+    from repro_torch.diffusion.text_encoder import encode_text
+    return (encode_text(eng.text_params, toks, eng.cfg.text),
+            encode_text(eng.text_params, un, eng.cfg.text))
+
+
+@phase("bitmap")
+def bitmap_phase(torch, eng):
+    """The PSXU entry point on real SAS slabs.
+
+    One full-width UNet call (step 0, the slice's weights) gives the
+    self-attention q/k/v of the first block at res 64, 32 and 16; the
+    cond row's pruned SAS, (8 heads x T queries, T keys), is computed by
+    the plain PSSA version's own operations.  The kernel must equal the
+    plain version bit for bit, and each row's counts must sum to the plain
+    PSSA popcount ``xor_ones`` of that row.  Then, counts at 0,
+    ``dispatch.patch_bitmap`` runs once per slab: 3 launches.
+    """
+    from repro_torch.core import pssa
+    from repro_torch.diffusion.unet import unet_forward
+    from repro_torch.kernels import dispatch, runtime
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.kernels.patch_bitmap.kernel import patch_bitmap_kernel
+    from repro_torch.kernels.patch_bitmap.ref import patch_bitmap_ref
+    from repro_torch.kernels.pssa_attention.ref import (
+        pssa_attention_stats_ref)
+
+    toks, un = _tokens(torch, eng.cfg, 7)
+    ctx, unc = _context(torch, eng, toks, un)
+    lat = eng.init_latents(1, torch.Generator(device="cuda").manual_seed(8))
+    captured = {}
+    orig = dispatch.self_attention
+
+    def capture(policy, q, k, v, **kw):
+        res = math.isqrt(k.shape[2])
+        captured.setdefault(res, (q[0].contiguous(), k[0].contiguous(),
+                                  v[0].contiguous(), kw["patch"]))
+        return orig(policy, q, k, v, **kw)
+
+    dispatch.self_attention = capture
+    try:
+        unet_forward(eng.unet_params, lat,
+                     torch.tensor([960], device="cuda"),
+                     torch.cat([ctx, unc]), eng.cfg.unet,
+                     tips_active=torch.tensor([True], device="cuda"),
+                     stats_rows=1, cfg_dup=True)
+    finally:
+        dispatch.self_attention = orig
+    rows, slabs = {}, []
+    for res in (64, 32, 16):
+        q, k, v, patch = captured[res]
+        h, t, d = q.shape
+        _, nnz, xor_ones = pssa_attention_stats_ref(q, k, v, THRESHOLD,
+                                                    patch)
+        probs = torch.softmax(torch.einsum("btd,bsd->bts", q, k)
+                              / math.sqrt(float(d)), dim=-1)
+        sas = pssa.prune(probs, THRESHOLD).reshape(h * t, t)
+        del probs
+        packed, counts = patch_bitmap_kernel(sas, patch, THRESHOLD)
+        torch.cuda.synchronize()
+        packed_p, counts_p = patch_bitmap_ref(sas, patch, THRESHOLD)
+        require(torch.equal(packed.view(torch.int32),
+                            packed_p.view(torch.int32))
+                and torch.equal(counts, counts_p),
+                f"patch_bitmap res{res}: not bit-exact against plain")
+        row_sums = counts.sum(dim=-1, dtype=torch.int32)
+        require(torch.equal(row_sums, xor_ones.reshape(-1)),
+                f"patch_bitmap res{res}: row sums of the counts differ "
+                f"from the PSSA xor_ones")
+        print(f"  patch_bitmap res{res} ({h * t}, {t}) patch {patch}: "
+              f"bit-exact; keep density "
+              f"{nnz.sum().item() / (h * t * t):.4f}; row sums equal "
+              f"xor_ones ({int(row_sums.sum())} ones)")
+        args = [(sas, patch, THRESHOLD)]
+        ms = rotating_ms(torch, patch_bitmap_kernel, args, reps=20)
+        plain_ms = rotating_ms(torch, patch_bitmap_ref, args, reps=3)
+        n = h * t * t
+        nbytes = 4.0 * (n + n / 32 + n / patch)
+        kernel_row(rows, "patch_bitmap", f"res{res}", [h * t, t, patch], ms,
+                   plain_ms, bound(nbytes, float(n), FP32_FLOPS), 0.0,
+                   res == 64)
+        slabs.append((sas.reshape(h, t, t), patch, packed, counts))
+        del packed_p, counts_p
+    policy = KernelPolicy.fused()
+    runtime.reset_launch_counts()
+    outs = [dispatch.patch_bitmap(policy, sas, patch, THRESHOLD)
+            for sas, patch, _, _ in slabs]
+    torch.cuda.synchronize()
+    counts = runtime.launch_counts()
+    print(f"launches {json.dumps(counts)}")
+    require(counts.get("patch_bitmap") == 3,
+            f"dispatch.patch_bitmap launches {counts.get('patch_bitmap')}"
+            f" != 3")
+    for (sas, _, packed, cnt), (pk, ct) in zip(slabs, outs):
+        require(torch.equal(pk.reshape(packed.shape).view(torch.int32),
+                            packed.view(torch.int32))
+                and torch.equal(ct.reshape(cnt.shape), cnt),
+                "dispatch.patch_bitmap differs from the kernel's bits")
+    return rows, counts
+
+
+def _with_reuse(cfg, reuse):
+    return dataclasses.replace(cfg, unet=dataclasses.replace(
+        cfg.unet, reuse_policy=reuse))
+
+
+def _reuse_counters(torch, stats):
+    """(steps, layers) computed and total of the cond row, on the host."""
+    comp = torch.stack([c.computed[:, 0] for c in stats.reuse], 1).cpu()
+    tot = torch.stack([c.total[:, 0] for c in stats.reuse], 1).cpu()
+    return comp, tot
+
+
+SLICE_ROUTE = dict(self_attention="fused", cross_attention="fused",
+                   ffn="dbsc", reuse="kernel")
+
+
+@phase("temporal")
+def temporal_phase(torch, eng):
+    """The slice with temporal patch reuse, fused + DBSC + reuse kernel.
+
+    Threshold 0: every patch is active and the result must equal the dense
+    latents bit for bit (DESIGN.md §9), as far as a dense witness from the
+    same latents equals the dense run.  Threshold 0.05: 225 launches of
+    the patch delta beside 225/225/450; step 0 computes every patch (the
+    cache is invalid); no step computes more than the grid.
+    """
+    from repro_torch.configs import bk_sdm
+    from repro_torch.core.reuse import ReusePolicy
+    from repro_torch.diffusion.engine import DiffusionEngine
+    from repro_torch.diffusion.pipeline import (
+        aggregated_reuse_ratios_per_iter)
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.dispatch import KernelPolicy
+
+    base = bk_sdm.with_kernel_policy(bk_sdm.CONFIG,
+                                     KernelPolicy(**SLICE_ROUTE))
+    params = {"text": eng.text_params, "unet": eng.unet_params,
+              "vae": eng.vae_params}
+    toks, un = _tokens(torch, base, 7)
+    latents = eng.init_latents(1, torch.Generator(device="cuda")
+                               .manual_seed(8))
+
+    def run(name, reuse):
+        cfg = _with_reuse(base, reuse)
+        e = DiffusionEngine(cfg, params=params)
+        runtime.reset_launch_counts()
+        out = e.generate(toks, uncond_tokens=un, latents=latents.clone())
+        counts = runtime.launch_counts()
+        require(bool(torch.isfinite(out.latents).all()),
+                f"{name}: non-finite latents")
+        print(f"{name}: s/image {e.last_wall_s:.4f}, launches "
+              f"{json.dumps(counts)}")
+        return out, counts, e.last_wall_s, cfg
+
+    dense, dense_counts, dense_s, _ = run("dense", ReusePolicy.off())
+    witness, _, _, _ = run("dense witness", ReusePolicy.off())
+    thr0, thr0_counts, _, _ = run("temporal threshold 0",
+                                  ReusePolicy.temporal(0.0))
+    require(dense_counts.get("patch_delta", 0) == 0,
+            f"the dense run launched patch_delta "
+            f"{dense_counts.get('patch_delta')} times")
+    w_eq = torch.equal(dense.latents, witness.latents)
+    t_eq = torch.equal(dense.latents, thr0.latents)
+    w_d = (dense.latents - witness.latents).abs().max().item()
+    t_d = (dense.latents - thr0.latents).abs().max().item()
+    print(f"witness: dense against dense bit-equal {w_eq} (max|diff| "
+          f"{w_d:.3e}); threshold 0 against dense bit-equal {t_eq} "
+          f"(max|diff| {t_d:.3e})")
+    if w_eq:
+        require(t_eq, "threshold-0 reuse differs from the dense latents "
+                      "though the dense path repeats bit for bit")
+    else:
+        require(t_d <= w_d, f"threshold-0 reuse differs from dense by "
+                            f"{t_d}, more than the dense witness {w_d}")
+    comp0, tot0 = _reuse_counters(torch, thr0.stats)
+    require(torch.equal(comp0, tot0), "threshold 0 skipped a patch")
+
+    temporal, counts, temporal_s, cfg = run(
+        "temporal threshold 0.05", ReusePolicy.temporal(REUSE_THRESHOLD))
+    want = {"pssa_attention": 225, "cross_attention_tips": 225,
+            "bitslice_matmul": 450, "patch_delta": 225}
+    require(all(counts.get(k) == v for k, v in want.items()),
+            f"launch counts {counts} != {want}")
+    comp, tot = _reuse_counters(torch, temporal.stats)
+    require(torch.equal(comp[0], tot[0]),
+            "step 0 reused a patch from an invalid cache")
+    require(bool((comp <= tot).all()), "computed > total")
+    ratios = aggregated_reuse_ratios_per_iter(cfg, [temporal.stats])
+    print("reuse ratio per iteration " + json.dumps(ratios))
+    print(f"computed patches per layer, summed over steps: "
+          f"{comp.sum(0).tolist()} of {tot.sum(0).tolist()}")
+    print(f"s/image dense {dense_s:.4f}, temporal {temporal_s:.4f} "
+          f"(threshold {REUSE_THRESHOLD})")
+    return counts, dense_s
+
+
+@phase("edit")
+def edit_phase(torch, eng, dense_s):
+    """img2img replay against a recorded base, capacity 1/8.
+
+    The base caches come from a threshold-0 temporal run with
+    ``record_caches=True``.  The same latents replayed under
+    ``ReusePolicy.edit(0.05, 0.125)`` compute nothing and return the base
+    latents bit for bit.  Latents with the window EDIT_WINDOW re-noised
+    keep every layer within the cap and run PSSA on T/8 gathered queries.
+    An ``apriori_window`` replay launches no patch delta.
+    """
+    from repro_torch.configs import bk_sdm
+    from repro_torch.core.reuse import ReusePolicy, reuse_cache_zeros
+    from repro_torch.diffusion.sampler import sample_scan, sample_scan_reuse
+    from repro_torch.diffusion.unet import unet_forward
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.dispatch import KernelPolicy
+
+    base = bk_sdm.with_kernel_policy(bk_sdm.CONFIG,
+                                     KernelPolicy(**SLICE_ROUTE))
+    toks, un = _tokens(torch, base, 7)
+    ctx, unc = _context(torch, eng, toks, un)
+    latents = eng.init_latents(1, torch.Generator(device="cuda")
+                               .manual_seed(8))
+    y0, x0, h, w = EDIT_WINDOW
+    renoised = latents.clone()
+    renoised[:, y0:y0 + h, x0:x0 + w, :] = torch.randn(
+        (1, h, w, latents.shape[-1]), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(9))
+
+    def sampler(reuse, lat, **kw):
+        ucfg = _with_reuse(base, reuse).unet
+
+        def apply(l, t, c, a, **akw):
+            return unet_forward(eng.unet_params, l, t, c, ucfg,
+                                tips_active=a, **akw)
+        runtime.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn = sample_scan if not reuse.enabled else sample_scan_reuse
+        out = fn(apply, lat.clone(), ctx, unc, base.ddim, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, runtime.launch_counts()
+
+    (lat_d, _), dense_loop_s, _ = sampler(ReusePolicy.off(), latents)
+    rec = ReusePolicy.temporal(0.0)
+    (lat_b, _, caches), rec_s, _ = sampler(
+        rec, latents, record_caches=True,
+        reuse_cache=reuse_cache_zeros(base.unet, 1, True, device="cuda"))
+    nbytes = sum(x.numel() * x.element_size() for c in caches
+                 for lc in c.layers for x in lc)
+    print(f"base record: {len(caches)} steps, {nbytes / 1e9:.3f} GB of "
+          f"caches ({nbytes / len(caches) / 1e6:.1f} MB a step); latents "
+          f"equal the dense loop's {torch.equal(lat_b, lat_d)}")
+    edit = ReusePolicy.edit(REUSE_THRESHOLD, EDIT_CAPACITY)
+    (lat_e, st_e), same_s, same_counts = sampler(edit, latents,
+                                                 base_caches=caches)
+    comp, _ = _reuse_counters(torch, st_e)
+    print(f"replay of the same latents: computed {int(comp.sum())}, "
+          f"latents equal the base {torch.equal(lat_e, lat_b)}, launches "
+          f"{json.dumps(same_counts)}")
+    require(int(comp.sum()) == 0, "the same input recomputed patches")
+    require(torch.equal(lat_e, lat_b), "the replay left the base latents")
+
+    (lat_p, st_p), edit_s, counts = sampler(edit, renoised,
+                                            base_caches=caches)
+    comp, tot = _reuse_counters(torch, st_p)
+    print(f"re-noised window {EDIT_WINDOW}: launches {json.dumps(counts)}; "
+          f"computed per layer at step 0 {comp[0].tolist()}, max over "
+          f"steps {comp.max(0).values.tolist()} of {tot[0].tolist()}")
+    require(counts.get("pssa_attention") == 225
+            and counts.get("patch_delta") == 225,
+            f"edit launches {counts}")
+    ucfg = base.unet
+    for li, lk in enumerate(st_p.layers):
+        t = lk.resolution ** 2
+        patch = ucfg.patch_size(lk.resolution)
+        cap = edit.cap_patches(t // patch)
+        require(int(comp[:, li].max()) <= cap,
+                f"{lk.name}: computed {comp[:, li].max()} > cap {cap}")
+        tq = st_p.pssa[li].total / (ucfg.num_heads * t)
+        require(bool((tq == t // 8).all()) and cap * patch == t // 8,
+                f"{lk.name}: PSSA ran on {tq.unique().tolist()} queries, "
+                f"not T/8 = {t // 8}")
+    require(not torch.equal(lat_p, lat_b), "the re-noised edit left the "
+                                           "base latents")
+    profile_breakdown(torch, lambda: sampler(edit, renoised,
+                                             base_caches=caches)[1],
+                      "edit", top=10)
+    win = ReusePolicy(enabled=True, threshold=REUSE_THRESHOLD,
+                      capacity=EDIT_CAPACITY, apriori_window=EDIT_WINDOW)
+    (_, st_w), win_s, win_counts = sampler(win, renoised,
+                                           base_caches=caches)
+    comp_w, _ = _reuse_counters(torch, st_w)
+    print(f"a-priori window: launches {json.dumps(win_counts)}, computed "
+          f"per layer {comp_w[0].tolist()}")
+    require(win_counts.get("patch_delta", 0) == 0,
+            f"the a-priori window launched patch_delta "
+            f"{win_counts.get('patch_delta')} times")
+    print(f"denoising loop s (25 steps, no text encode or VAE decode): "
+          f"dense {dense_loop_s:.4f}, base record {rec_s:.4f}, edit replay "
+          f"same {same_s:.4f}, edit re-noised {edit_s:.4f}, a-priori "
+          f"window {win_s:.4f}; engine s/image dense {dense_s:.4f}")
+    del caches
 
 
 HEADLINES = ("total_ema_reduction", "ema_gb_per_iter_optimized",
@@ -507,10 +963,16 @@ def parity_phase(torch, eng):
        printed, and held through the bytes.
     3. A witness without any kernel difference: reference attention + DBSC
        against itself from latents one ulp apart, printed beside 2.
+    4. Temporal reuse at threshold 0.05 on both routes: ``reference()``
+       against ``fused()`` (patch delta through its kernel), the float
+       FFN on both.  The limits of 1 hold, and the per-layer reuse
+       counters must be equal but for ties (``_hold_reuse``).
     """
     from repro_torch.configs import bk_sdm
+    from repro_torch.core.reuse import ReusePolicy
     from repro_torch.diffusion.engine import DiffusionEngine
     from repro_torch.diffusion.pipeline import energy_report
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels.dispatch import KernelPolicy
 
     base = dataclasses.replace(bk_sdm.CONFIG, ddim=dataclasses.replace(
@@ -518,12 +980,12 @@ def parity_phase(torch, eng):
     params = {"text": eng.text_params, "unet": eng.unet_params,
               "vae": eng.vae_params}
 
-    def run(name, pol, seed, latents=None):
+    def run(name, pol, seed, latents=None, reuse=ReusePolicy.off()):
         toks, un = _tokens(torch, base, seed)
         if latents is None:
             latents = eng.init_latents(1, torch.Generator(device="cuda")
                                        .manual_seed(seed + 1))
-        cfg = bk_sdm.with_kernel_policy(base, pol)
+        cfg = _with_reuse(bk_sdm.with_kernel_policy(base, pol), reuse)
         e = DiffusionEngine(cfg, params=params)
         out = e.generate(toks, uncond_tokens=un, latents=latents.clone())
         rep = energy_report(cfg, out.stats).summary()
@@ -559,6 +1021,78 @@ def parity_phase(torch, eng):
           f"one ulp apart, seed {seed}:")
     _differences(torch, ref_d, ulp_d, (ref_d_rep, ulp_d_rep))
 
+    seed = DBSC_SEEDS[0]
+    reuse = ReusePolicy.temporal(REUSE_THRESHOLD)
+    deltas = {}
+    orig = dispatch.patch_delta
+
+    def run_reuse(key, name, pol):
+        deltas[key] = []
+
+        def capture(policy, x, x_ref, *, patch, threshold):
+            out = orig(policy, x, x_ref, patch=patch, threshold=threshold)
+            deltas[key].append(out[0])
+            return out
+
+        dispatch.patch_delta = capture
+        try:
+            return run(name, pol, seed, reuse=reuse)
+        finally:
+            dispatch.patch_delta = orig
+
+    ref_r, ref_r_rep, _ = run_reuse("reference", "reference + reuse",
+                                    KernelPolicy.reference())
+    fus_r, fus_r_rep, _ = run_reuse("fused", "fused + reuse kernel",
+                                    KernelPolicy.fused())
+    print(f"reference + reuse vs fused + reuse kernel, threshold "
+          f"{REUSE_THRESHOLD}, seed {seed}:")
+    _hold("reuse pair", _differences(torch, ref_r, fus_r,
+                                     (ref_r_rep, fus_r_rep)),
+          LATENT_ATOL, 1.0, HEADLINES)
+    _hold_reuse(torch, ref_r.stats, fus_r.stats, deltas)
+
+
+def _hold_reuse(torch, rs, fs, deltas):
+    """Reuse counters of two routes from the same latents: equal, except
+    where a patch's delta lies within REUSE_TIE_REL of the threshold on
+    either route (a tie; each is printed).  Each route's cond-row counter
+    must equal its own bitmap ``delta >= threshold``; step 0 runs on an
+    invalid cache and computes every patch."""
+    thr = REUSE_THRESHOLD
+    nl = len(rs.layers)
+    comp_r, tot = _reuse_counters(torch, rs)
+    comp_f, _ = _reuse_counters(torch, fs)
+    require(len(deltas["reference"]) == len(deltas["fused"])
+            == nl * comp_r.shape[0], "patch_delta calls missing")
+    require(torch.equal(comp_r[0], tot[0]) and torch.equal(comp_f[0],
+                                                           tot[0]),
+            "step 0 reused a patch from an invalid cache")
+    ties = 0
+    for i, (dr, df) in enumerate(zip(deltas["reference"], deltas["fused"])):
+        step, li = divmod(i, nl)
+        if step == 0:
+            continue
+        ar, af = dr >= thr, df >= thr
+        require(int(comp_r[step, li]) == int(ar[0].sum())
+                and int(comp_f[step, li]) == int(af[0].sum()),
+                f"step {step} {rs.layers[li].name}: counters do not follow "
+                f"the bitmaps")
+        for row, patch in (ar != af).nonzero().tolist():
+            a, b = dr[row, patch].item(), df[row, patch].item()
+            dist = max(abs(a - thr), abs(b - thr)) / thr
+            print(f"  tie: step {step} {rs.layers[li].name} row {row} "
+                  f"patch {patch}: delta reference {a!r}, fused {b!r} "
+                  f"({dist:.2e} of the threshold)")
+            require(dist <= REUSE_TIE_REL,
+                    f"a reuse bit differs {dist:.2e} of the threshold "
+                    f"from it: not a tie")
+            ties += 1
+    cells = int((comp_r != comp_f).sum())
+    print(f"  reuse counters: {cells} (step, layer) cells differ, "
+          f"{ties} tie patches; computed {comp_r.sum().item()} "
+          f"(reference) / {comp_f.sum().item()} (fused) of "
+          f"{tot.sum().item()}")
+
 
 # ---------------------------------------------------------------------------
 def main() -> int:
@@ -582,12 +1116,20 @@ def main() -> int:
         build_kernels()
         rows = kernels_phase(torch)
         eng, counts = slice_phase(torch)
+        bitmap_rows, bitmap_counts = bitmap_phase(torch, eng)
+        reuse_counts, dense_s = temporal_phase(torch, eng)
+        edit_phase(torch, eng, dense_s)
         parity_phase(torch, eng)
     except Exception as exc:                      # report, then fail
         import traceback
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    rows.update(bitmap_rows)
+    # each kernel's launches on its own path: the slice for the three of
+    # the dense path, the temporal run and the bitmap entry point
+    counts = dict(counts, patch_delta=reuse_counts["patch_delta"],
+                  patch_bitmap=bitmap_counts["patch_bitmap"])
     for name, row in rows.items():
         row["launches"] = counts[name]
     print(f"total {time.perf_counter() - t0:.1f} s")

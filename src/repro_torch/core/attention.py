@@ -62,14 +62,19 @@ def self_attention_pssa(q, k, v, patch: int,
 def self_attention_pssa_fused(q, k, v, patch: int,
                               threshold: float = pssa.DEFAULT_THRESHOLD,
                               stats_rows: int | None = None) -> SelfAttnOut:
-    """``self_attention_pssa`` through the PSSA kernel (always prunes)."""
-    b, h, t, d = q.shape
+    """``self_attention_pssa`` through the PSSA kernel (always prunes).
+
+    The queries (B, H, Tq, d) may be fewer than the keys (B, H, Tk, d):
+    under temporal reuse they are gathered to the active patch rows.
+    """
+    b, h, tq, _ = q.shape
+    tk = k.shape[2]
     out, nnz_rows, xor_rows = pssa_attention(q, k, v, threshold, patch=patch)
     rows = b if stats_rows is None else stats_rows
     nnz = nnz_rows[:rows].sum(dtype=torch.int64)
     ones_xor = xor_rows[:rows].sum(dtype=torch.int64)
     stats = pssa.stats_from_counters(nnz, ones_xor, lead=rows * h,
-                                     tq=t, tk=t, patch=patch)
+                                     tq=tq, tk=tk, patch=patch)
     return SelfAttnOut(out=out, stats=stats)
 
 

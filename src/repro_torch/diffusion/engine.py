@@ -1,8 +1,10 @@
 """One-shot diffusion engine (port of ``repro.diffusion.engine``, one-shot
 ``generate`` only).
 
-encode -> the fused-CFG denoising loop (``sampler.sample_scan``) -> decode,
-with the stats trajectory stacked along a leading ``num_steps`` axis.
+encode -> the fused-CFG denoising loop (``sampler.sample_scan``, or
+``sampler.sample_scan_reuse`` from an all-invalid cache when
+``cfg.unet.reuse_policy`` is enabled) -> decode, with the stats trajectory
+stacked along a leading ``num_steps`` axis.
 PyTorch runs eagerly, so there is no executable cache; the wall time of a
 call is taken after ``torch.cuda.synchronize()`` on the card.
 """
@@ -16,7 +18,8 @@ import torch
 
 from repro_torch.diffusion.pipeline import (PipelineConfig,
                                             _default_generator, init_params)
-from repro_torch.diffusion.sampler import sample_scan
+from repro_torch.core.reuse import reuse_cache_zeros
+from repro_torch.diffusion.sampler import sample_scan, sample_scan_reuse
 from repro_torch.diffusion.text_encoder import encode_text
 from repro_torch.diffusion.unet import unet_forward
 from repro_torch.diffusion.vae import decode
@@ -60,6 +63,17 @@ class DiffusionEngine:
 
     def __init__(self, cfg: PipelineConfig, device=None, params=None,
                  generator=None):
+        reuse = cfg.unet.reuse_policy
+        if reuse.enabled and reuse.capacity < 1.0:
+            # the engine's run starts from an INVALID cache: every patch is
+            # active on step 0, so a gather narrower than the grid would
+            # reuse zeros.  capacity < 1 belongs to the edit path
+            # (sampler.sample_scan_reuse with recorded base_caches).
+            raise ValueError(
+                f"reuse_policy.capacity={reuse.capacity} < 1.0 on the "
+                f"engine's temporal path — the cache starts invalid, so "
+                f"capacity must be 1.0 (use the edit-mode sampler with "
+                f"recorded base caches for shrunken gathers)")
         self.cfg = cfg
         self.device = resolve_device(device)
         if params is None:
@@ -101,8 +115,16 @@ class DiffusionEngine:
         if use_cfg:
             uncond = encode_text(self.text_params, torch.as_tensor(
                 uncond_tokens, device=self.device), cfg.text)
-        latents, stats = sample_scan(self._unet_apply, latents, context,
-                                     uncond, cfg.ddim, stats_rows=stats_rows)
+        if cfg.unet.reuse_policy.enabled:
+            cache = reuse_cache_zeros(cfg.unet, latents.shape[0],
+                                      use_cfg=use_cfg, device=self.device)
+            latents, stats = sample_scan_reuse(
+                self._unet_apply, latents, context, uncond, cfg.ddim,
+                reuse_cache=cache, stats_rows=stats_rows)
+        else:
+            latents, stats = sample_scan(self._unet_apply, latents, context,
+                                         uncond, cfg.ddim,
+                                         stats_rows=stats_rows)
         images = decode(self.vae_params, latents, cfg.vae)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -170,6 +170,24 @@ def energy_report_multi(cfg: PipelineConfig, stats_per_batch,
                               full_geometry=full_geometry)
 
 
+def aggregated_reuse_ratios_per_iter(cfg: PipelineConfig,
+                                     stats_per_batch) -> list:
+    """Per-iteration realized reuse ratio, 1 - computed/total, across
+    several calls' stacked ``UNetStats`` (what ``sample_scan_reuse``
+    returns).  Integer counters are summed over calls and layers before
+    the one division; dense trajectories (empty ``reuse``) contribute
+    nothing, and an iteration with no reuse work reads 0.0."""
+    out = []
+    for i in range(cfg.ddim.num_inference_steps):
+        num = den = 0
+        for s in stats_per_batch:
+            for c in (s.reuse if isinstance(s, UNetStats) else ()):
+                num += int(c.computed[i].sum())
+                den += int(c.total[i].sum())
+        out.append(0.0 if den == 0 else 1.0 - num / den)
+    return out
+
+
 def _report_from_terms(cfg: PipelineConfig, per_iter_terms,
                        full_geometry: bool = True
                        ) -> "PipelineEnergyReport":

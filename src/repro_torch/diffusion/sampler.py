@@ -9,6 +9,9 @@ iterations.
                    cond + uncond fused into ONE UNet call per step with the
                    shared prefix run once (``cfg_dup``); returns the stats
                    trajectory stacked along a leading ``num_steps`` axis.
+``sample_scan_reuse`` — the same loop with the temporal-reuse cache,
+                   carried from step to step (temporal mode) or read from
+                   a base request's recorded per-step caches (edit mode).
 """
 from __future__ import annotations
 
@@ -107,12 +110,16 @@ def sample(unet_apply, latents, context, uncond_context, cfg: DDIMConfig,
 
 
 def denoise_step(unet_apply, latents, context, uncond_context, step_idx: int,
-                 cfg: DDIMConfig, stats_rows=None):
+                 cfg: DDIMConfig, stats_rows=None, reuse_cache=None):
     """ONE denoising update with every row at iteration ``step_idx``.
 
     Under CFG the cond and uncond UNet evaluations are one batched call with
     the shared prefix deduplicated (``cfg_dup``), and the PSSA/TIPS stats
     cover the cond rows only (``stats_rows`` defaults to the batch).
+
+    ``reuse_cache`` (a ``core.reuse.ReuseCache``) is passed to the UNet,
+    which then returns the new cache, and so does this function:
+    ``(latents, stats, new_cache)``.  Without it: ``(latents, stats)``.
     """
     acp = alphas_cumprod(cfg, latents.device)
     ts = timestep_schedule(cfg, latents.device)
@@ -122,17 +129,23 @@ def denoise_step(unet_apply, latents, context, uncond_context, step_idx: int,
                      dtype=torch.int64, device=latents.device)
     t = ts[idx]                                   # (B,) per-row timesteps
     tips_vec = idx < cfg.tips_active_iters        # (B,) per-row TIPS flag
+    kw = {} if reuse_cache is None else {"reuse_cache": reuse_cache}
     use_cfg = cfg.guidance_scale != 1.0 and uncond_context is not None
     if use_cfg:
         ctx_fused = torch.cat([context, uncond_context], dim=0)
         rows = b if stats_rows is None else stats_rows
-        eps, stats = unet_apply(latents, t, ctx_fused, tips_vec,
-                                stats_rows=rows, cfg_dup=True)
-        eps = guided_eps(eps, cfg.guidance_scale)
+        out = unet_apply(latents, t, ctx_fused, tips_vec, stats_rows=rows,
+                         cfg_dup=True, **kw)
     else:
-        eps, stats = unet_apply(latents, t, context, tips_vec,
-                                stats_rows=stats_rows)
-    return ddim_step(latents, eps, t, t - step, acp), stats
+        out = unet_apply(latents, t, context, tips_vec,
+                         stats_rows=stats_rows, **kw)
+    eps, stats = out[:2]
+    if use_cfg:
+        eps = guided_eps(eps, cfg.guidance_scale)
+    latents = ddim_step(latents, eps, t, t - step, acp)
+    if reuse_cache is not None:
+        return latents, stats, out[2]
+    return latents, stats
 
 
 def sample_scan(unet_apply, latents, context, uncond_context,
@@ -151,3 +164,48 @@ def sample_scan(unet_apply, latents, context, uncond_context,
                                       stats_rows=stats_rows)
         per_step.append(stats)
     return latents, UNetStats.stack(per_step)
+
+
+def sample_scan_reuse(unet_apply, latents, context, uncond_context,
+                      cfg: DDIMConfig, reuse_cache=None, stats_rows=None,
+                      base_caches=None, record_caches: bool = False):
+    """All denoising steps with the temporal-reuse cache threaded.
+
+    * **temporal** — ``reuse_cache`` (typically the all-invalid
+      ``core.reuse.reuse_cache_zeros``) is carried: each step reuses the
+      PREVIOUS step's activations.  ``record_caches=True`` also keeps
+      every step's new cache, in a list indexed by step (the base trace
+      of an edit), and returns ``(latents, stats, caches)``.
+    * **edit** — ``base_caches`` is such a list from a BASE request: step
+      ``i`` reuses the base's step-``i`` activations, which are valid
+      from step 0, so ``capacity < 1`` is safe.
+
+    Returns ``(latents, stacked UNetStats)`` with per-layer reuse
+    counters (plus the recorded caches when asked).
+    """
+    b = latents.shape[0]
+    if stats_rows is not None and not (0 < stats_rows <= b):
+        raise ValueError(f"stats_rows={stats_rows} outside [1, {b}]")
+    if (reuse_cache is None) == (base_caches is None):
+        raise ValueError(
+            "pass exactly one of reuse_cache (temporal mode) or "
+            "base_caches (edit mode)")
+    n = cfg.num_inference_steps
+    if base_caches is not None and len(base_caches) != n:
+        raise ValueError(f"base_caches holds {len(base_caches)} steps, the "
+                         f"schedule {n}")
+    per_step, caches = [], []
+    cache = reuse_cache
+    for i in range(n):
+        if base_caches is not None:
+            cache = base_caches[i]
+        latents, stats, cache = denoise_step(
+            unet_apply, latents, context, uncond_context, i, cfg,
+            stats_rows=stats_rows, reuse_cache=cache)
+        per_step.append(stats)
+        if record_caches:
+            caches.append(cache)
+    stacked = UNetStats.stack(per_step)
+    if record_caches:
+        return latents, stacked, caches
+    return latents, stacked

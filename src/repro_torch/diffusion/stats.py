@@ -2,9 +2,11 @@
 ``repro.diffusion.stats``).
 
 ``UNetStats`` holds one ``PSSAStats`` and one ``TIPSResult`` per transformer
-block, in ``attn_layer_order(cfg)``.  A denoising loop collects one per
-step; ``UNetStats.stack`` turns the list into the stacked view (every leaf
-gains a leading ``num_steps`` axis) and ``step(i)`` / ``unstack()`` go back.
+block, in ``attn_layer_order(cfg)``, and one ``ReuseRowCounters`` per block
+when the forward ran with a temporal-reuse cache (none on the dense path).
+A denoising loop collects one per step; ``UNetStats.stack`` turns the list
+into the stacked view (every leaf gains a leading ``num_steps`` axis) and
+``step(i)`` / ``unstack()`` go back.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.pssa import PSSAStats
+from repro_torch.core.reuse import ReuseRowCounters
 from repro_torch.core.tips import TIPSResult
 
 
@@ -54,11 +57,13 @@ def _map(fn, nt):
 
 @dataclasses.dataclass(frozen=True)
 class UNetStats:
-    """Per-layer stats; leaves are scalars (per-query arrays for TIPS) for
-    one forward pass, with a leading ``num_steps`` axis when stacked."""
+    """Per-layer stats; leaves are scalars (per-query arrays for TIPS,
+    per-row counters for reuse) for one forward pass, with a leading
+    ``num_steps`` axis when stacked."""
     layers: Tuple[LayerKey, ...]
     pssa: Tuple[PSSAStats, ...]
     tips: Tuple[TIPSResult, ...]
+    reuse: Tuple[ReuseRowCounters, ...] = ()
 
     def __len__(self) -> int:
         return len(self.layers)
@@ -74,7 +79,8 @@ class UNetStats:
     def map(self, fn) -> "UNetStats":
         return UNetStats(layers=self.layers,
                          pssa=tuple(_map(fn, s) for s in self.pssa),
-                         tips=tuple(_map(fn, t) for t in self.tips))
+                         tips=tuple(_map(fn, t) for t in self.tips),
+                         reuse=tuple(_map(fn, r) for r in self.reuse))
 
     def step(self, i: int) -> "UNetStats":
         """Per-iteration view of a stacked stats object."""
@@ -99,23 +105,28 @@ class UNetStats:
     def stack(cls, per_step: list) -> "UNetStats":
         """List of single-pass stats -> one stacked stats object."""
         first = per_step[0]
-        pssa = tuple(
-            PSSAStats(*(torch.stack(f) for f in zip(*[s.pssa[li]
-                                                      for s in per_step])))
-            for li in range(len(first.layers)))
-        tips = tuple(
-            TIPSResult(*(torch.stack(f) for f in zip(*[s.tips[li]
-                                                       for s in per_step])))
-            for li in range(len(first.layers)))
-        return cls(layers=first.layers, pssa=pssa, tips=tips)
+
+        def stacked(kind, field):
+            return tuple(
+                kind(*(torch.stack(f) for f in zip(
+                    *[getattr(s, field)[li] for s in per_step])))
+                for li in range(len(getattr(first, field))))
+        return cls(layers=first.layers,
+                   pssa=stacked(PSSAStats, "pssa"),
+                   tips=stacked(TIPSResult, "tips"),
+                   reuse=stacked(ReuseRowCounters, "reuse"))
 
     @classmethod
-    def from_layer_list(cls, layers, pssa, tips) -> "UNetStats":
+    def from_layer_list(cls, layers, pssa, tips, reuse=()) -> "UNetStats":
         layers, pssa, tips = tuple(layers), tuple(pssa), tuple(tips)
+        reuse = tuple(reuse)
         if not len(layers) == len(pssa) == len(tips):
             raise ValueError(f"{len(layers)} layers, {len(pssa)} PSSA and "
                              f"{len(tips)} TIPS entries")
-        return cls(layers=layers, pssa=pssa, tips=tips)
+        if reuse and len(reuse) != len(layers):
+            raise ValueError(f"{len(layers)} layers, {len(reuse)} reuse "
+                             f"entries")
+        return cls(layers=layers, pssa=pssa, tips=tips, reuse=reuse)
 
 
 def coerce_per_step_stats(stats) -> list:

@@ -1,11 +1,13 @@
 """BK-SDM-Tiny UNet with PSSA / TIPS / DBSC (port of
-``repro.diffusion.unet``, dense path).
+``repro.diffusion.unet``: the dense path and temporal patch reuse).
 
 SD-v1 block layout with one resnet + one transformer block per down stage,
 two per up stage and no mid block.  Each transformer block runs PSSA
 self-attention, cross-attention that emits the TIPS CLS score, and a GEGLU
 FFN whose rows run INT12/INT6 per the TIPS mask; every stage goes through
-``repro_torch.kernels.dispatch``.
+``repro_torch.kernels.dispatch``.  With a ``ReuseCache`` and an enabled
+``UNetConfig.reuse_policy`` each block recomputes only the patches whose
+input changed (``repro_torch.core.reuse``).
 
 Layouts: activations are NHWC at the public functions, as in the JAX
 package.  Parameters are a nested dict in the JAX layout with one change:
@@ -24,9 +26,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.core.reuse import (LayerReuseCache, ReuseCache, ReusePolicy,
+                                    ReuseRowCounters, window_patch_mask)
 from repro_torch.diffusion.stats import UNetStats, attn_layer_order
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.dispatch import KernelPolicy
+from repro_torch.kernels.patch_reuse import ops as reuse_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +60,8 @@ class UNetConfig:
     pssa_stats_reference: bool = False
     kernel_policy: KernelPolicy = KernelPolicy()
     precision: PrecisionPolicy = PrecisionPolicy()
+    # temporal patch reuse (repro_torch.core.reuse); off by default
+    reuse_policy: ReusePolicy = ReusePolicy()
 
     def patch_size(self, resolution: int) -> int:
         """PSXU patch width at a given feature-map resolution (16/32/64)."""
@@ -242,11 +249,46 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, t, h * d)
 
 
+def _reuse_plan(x2d, reuse, cfg: UNetConfig, policy: KernelPolicy,
+                stats_rows):
+    """The reuse branch's plan for one block: (token rows (B, R), gate
+    per row (B, R), ReuseRowCounters, token input (B, T, C))."""
+    rp, cache, valid = reuse
+    b, res, wid, c = x2d.shape
+    tokens_in = x2d.reshape(b, res * wid, c)
+    patch = cfg.patch_size(res)
+    if rp.apriori_window is not None:
+        # the edit region is known up front: no patch-delta launch
+        mask = window_patch_mask(rp.apriori_window, res, patch,
+                                 cfg.latent_size)
+        changed = torch.tensor(mask, dtype=torch.bool,
+                               device=x2d.device)[None].expand(b, -1)
+    else:
+        _, changed = dispatch.patch_delta(policy, tokens_in, cache.ref,
+                                          patch=patch,
+                                          threshold=rp.threshold)
+    if valid.shape[0] != b:
+        # post-dup rows are [cond | uncond]; validity is per request row
+        valid = torch.cat([valid, valid], dim=0)
+    act = torch.logical_or(changed, torch.logical_not(valid)[:, None])
+    npatch = tokens_in.shape[1] // patch
+    order, gate = reuse_ops.reuse_plan(act, rp.cap_patches(npatch))
+    rows = reuse_ops.plan_token_rows(order, patch)
+    gate_rows = gate.repeat_interleave(patch, dim=1)
+    sr = b if stats_rows is None else stats_rows
+    counters = ReuseRowCounters(
+        computed=gate.sum(dim=1, dtype=torch.int32)[:sr],
+        total=torch.full((b,), npatch, dtype=torch.int32,
+                         device=x2d.device)[:sr])
+    return rows, gate_rows, counters, tokens_in
+
+
 def _transformer_block(x2d, p, context, cfg: UNetConfig, tips_active,
                        stats_rows=None, dup_after_self: bool = False,
                        policy: KernelPolicy | None = None,
-                       precision: PrecisionPolicy | None = None):
-    """x2d: (B, H, W, C) -> (out, PSSAStats, TIPSResult).
+                       precision: PrecisionPolicy | None = None,
+                       reuse=None):
+    """x2d: (B, H, W, C) -> (out, PSSAStats, TIPSResult, reuse_out).
 
     ``tips_active``: a bool or a (B,) per-row bool tensor.  ``stats_rows``
     restricts the stats to the first N batch rows.  ``dup_after_self``:
@@ -254,20 +296,43 @@ def _transformer_block(x2d, p, context, cfg: UNetConfig, tips_active,
     cross-attention, so everything through this block's self-attention
     runs on the cond half and the hidden state is tiled to both halves
     here (``x2d`` then has half as many rows as ``context``).
+
+    ``reuse``: None (the dense path; ``reuse_out`` is None) or a
+    ``(ReusePolicy, LayerReuseCache, valid)`` triple.  The block then
+    gathers the rows of the active patches into the self-attention
+    queries, the cross-attention queries and the FFN (K/V, norms and
+    projections stay dense), scatters the stage outputs over the cached
+    ones, and returns ``reuse_out = (new LayerReuseCache,
+    ReuseRowCounters)``.  At threshold 0 the plan is the identity and the
+    block is bit-identical to the dense path (DESIGN.md §9).
     """
     b, hgt, wid, c = x2d.shape
     heads = cfg.num_heads
     policy = cfg.kernel_policy if policy is None else policy
     precision = cfg.precision if precision is None else precision
 
+    def gather(x):
+        return x if reuse is None else reuse_ops.gather_rows(x, rows)
+
+    def scatter(stage, x):
+        if reuse is None:
+            return x
+        return reuse_ops.scatter_rows(getattr(reuse[1], stage), rows, x,
+                                      gate_rows)
+
+    if reuse is not None:
+        rows, gate_rows, counters, tokens_in = _reuse_plan(
+            x2d, reuse, cfg, policy, stats_rows)
+
     h = group_norm(x2d, p["norm_in"]["scale"], p["norm_in"]["bias"],
                    cfg.groups).reshape(b, hgt * wid, c)
     h = h @ p["proj_in"]["w"] + p["proj_in"]["b"]
 
-    # --- self-attention (PSSA) ---
+    # --- self-attention (PSSA); under reuse the queries are gathered to
+    # the active patch rows and K/V stay dense ---
     resid = h
     hn = layer_norm(h, p["ln1"]["scale"], p["ln1"]["bias"])
-    q = _attn_heads(hn, p["sa_q"]["w"], heads)
+    q = _attn_heads(gather(hn), p["sa_q"]["w"], heads)
     k = _attn_heads(hn, p["sa_k"]["w"], heads)
     v = _attn_heads(hn, p["sa_v"]["w"], heads)
     sa = dispatch.self_attention(policy, q, k, v, patch=cfg.patch_size(hgt),
@@ -276,23 +341,31 @@ def _transformer_block(x2d, p, context, cfg: UNetConfig, tips_active,
                                  stats_rows=None if dup_after_self
                                  else stats_rows,
                                  reference_stats=cfg.pssa_stats_reference)
-    h = resid + (_merge_heads(sa.out) @ p["sa_o"]["w"] + p["sa_o"]["b"])
+    sa_full = scatter("sa", _merge_heads(sa.out) @ p["sa_o"]["w"]
+                      + p["sa_o"]["b"])
+    h = resid + sa_full
 
     if dup_after_self:
         # tile [cond] -> [cond | uncond]; divergence starts at cross-attn
         h = torch.cat([h, h], dim=0)
         x2d = torch.cat([x2d, x2d], dim=0)
         b = x2d.shape[0]
+        if reuse is not None:
+            # the plan was made on the cond half; both halves share it
+            rows = torch.cat([rows, rows], dim=0)
+            gate_rows = torch.cat([gate_rows, gate_rows], dim=0)
 
     # --- cross-attention (TIPS CAS source) ---
     resid = h
     hn = layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"])
-    q = _attn_heads(hn, p["ca_q"]["w"], heads)
+    q = _attn_heads(gather(hn), p["ca_q"]["w"], heads)
     kt = _attn_heads(context, p["ca_k"]["w"], heads)
     vt = _attn_heads(context, p["ca_v"]["w"], heads)
     ca = dispatch.cross_attention(policy, q, kt, vt, precision=precision,
                                   stats_rows=stats_rows)
-    h = resid + (_merge_heads(ca.out) @ p["ca_o"]["w"] + p["ca_o"]["b"])
+    ca_full = scatter("ca", _merge_heads(ca.out) @ p["ca_o"]["w"]
+                      + p["ca_o"]["b"])
+    h = resid + ca_full
 
     # --- FFN (GEGLU) with TIPS mixed precision ---
     resid = h
@@ -305,14 +378,21 @@ def _transformer_block(x2d, p, context, cfg: UNetConfig, tips_active,
             if active.shape[0] != b:
                 active = torch.cat([active, active], dim=0)
             active = active[:, None]
+        # under reuse ca.important_full lives on the gathered rows
         important = torch.logical_or(ca.important_full,
                                      torch.logical_not(active))
-    h = resid + dispatch.ffn_geglu(policy, hn, p, important,
-                                   precision=precision)
+    ffn_full = scatter("ffn", dispatch.ffn_geglu(policy, gather(hn), p,
+                                                 important,
+                                                 precision=precision))
+    h = resid + ffn_full
 
     h = h @ p["proj_out"]["w"] + p["proj_out"]["b"]
     out = x2d + h.reshape(b, hgt, wid, c)
-    return out, sa.stats, ca.tips_result
+    if reuse is None:
+        return out, sa.stats, ca.tips_result, None
+    new_cache = LayerReuseCache(ref=tokens_in, sa=sa_full, ca=ca_full,
+                                ffn=ffn_full)
+    return out, sa.stats, ca.tips_result, (new_cache, counters)
 
 
 def _downsample(x, p):
@@ -328,16 +408,26 @@ def _upsample(x, p):
 # ----------------------------------------------------------------------------
 def unet_forward(params, latents, timesteps, context, cfg: UNetConfig,
                  tips_active=True, stats_rows: Optional[int] = None,
-                 cfg_dup: bool = False):
+                 cfg_dup: bool = False,
+                 reuse_cache: Optional[ReuseCache] = None):
     """latents (B, S, S, 4), timesteps (B,), context (B, Ttext, ctx_dim).
 
     Returns (eps (B, S, S, 4), ``UNetStats``).  ``cfg_dup``: ``latents`` and
     ``timesteps`` carry only the cond half (B rows) while ``context``
     carries ``[cond | uncond]`` (2B rows); the shared prefix runs once and
     ``eps`` comes back with 2B rows.
+
+    ``reuse_cache`` (a ``ReuseCache`` for this batch and CFG geometry)
+    switches temporal patch reuse on when ``cfg.reuse_policy.enabled``.
+    The return then gains a third element, the NEW cache (this step's
+    activations, every row valid), and ``stats.reuse`` holds per-layer
+    ``ReuseRowCounters``.
     """
     pssa_stats: list = []
     tips_stats: list = []
+    reuse_stats: list = []
+    new_layer_caches: list = []
+    reuse_on = cfg.reuse_policy.enabled and reuse_cache is not None
     needs_dup = cfg_dup
     if cfg_dup and context.shape[0] != 2 * latents.shape[0]:
         raise ValueError(f"cfg_dup needs 2x context rows: context "
@@ -350,13 +440,22 @@ def unet_forward(params, latents, timesteps, context, cfg: UNetConfig,
 
     def attn_block(h, bp):
         nonlocal temb, needs_dup
-        h, sa, ca = _transformer_block(h, bp, context, cfg, tips_active,
-                                       stats_rows, dup_after_self=needs_dup)
+        reuse = None
+        if reuse_on:
+            reuse = (cfg.reuse_policy, reuse_cache.layers[len(pssa_stats)],
+                     reuse_cache.valid)
+        h, sa, ca, ru = _transformer_block(h, bp, context, cfg, tips_active,
+                                           stats_rows,
+                                           dup_after_self=needs_dup,
+                                           reuse=reuse)
         if needs_dup:
             temb = torch.cat([temb, temb], dim=0)
             needs_dup = False
         pssa_stats.append(sa)
         tips_stats.append(ca)
+        if reuse_on:
+            new_layer_caches.append(ru[0])
+            reuse_stats.append(ru[1])
         return h
 
     def pop_skip(h):
@@ -399,5 +498,9 @@ def unet_forward(params, latents, timesteps, context, cfg: UNetConfig,
                    params["norm_out"]["bias"], cfg.groups)
     eps = conv2d(F.silu(h), params["conv_out"]["w"], params["conv_out"]["b"])
     stats = UNetStats.from_layer_list(attn_layer_order(cfg), pssa_stats,
-                                      tips_stats)
+                                      tips_stats, reuse=reuse_stats)
+    if reuse_on:
+        new_cache = ReuseCache(valid=torch.ones_like(reuse_cache.valid),
+                               layers=tuple(new_layer_caches))
+        return eps, stats, new_cache
     return eps, stats

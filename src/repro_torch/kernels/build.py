@@ -112,6 +112,10 @@ _SIGNATURES = {
                                     _F, _P],
     # hi, lo, w, prec, out, m, k, n, dataflow, stream
     "launch_bitslice_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, ref, out, rows, w, vec4, stream
+    "launch_patch_delta": [_P, _P, _P, _I, _I, _I, _P],
+    # sas, packed, counts, rows, tk, patch, threshold, stream
+    "launch_patch_bitmap": [_P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 

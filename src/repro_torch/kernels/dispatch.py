@@ -4,10 +4,13 @@
   self_attention   reference | fused    PSSA-pruned self-attention + stats
   cross_attention  reference | fused    text cross-attention + TIPS CAS
   ffn              reference | dbsc     GEGLU FFN (TIPS mixed precision)
+  bitmap           reference | kernel   PSXU bitmap / patch-XOR / popcount
+  reuse            reference | kernel   temporal-reuse patch delta
 
-``fused`` and ``dbsc`` run the hand-written kernels on a CUDA tensor and
-their plain PyTorch versions on a CPU tensor.  Stats parity (DESIGN.md §5):
-for any policy the reported counters equal the reference path's.
+``fused``, ``dbsc`` and ``kernel`` run the hand-written kernels on a CUDA
+tensor and their plain PyTorch versions on a CPU tensor.  Stats parity
+(DESIGN.md §5): for any policy the reported counters equal the reference
+path's.
 """
 from __future__ import annotations
 
@@ -18,12 +21,17 @@ import torch.nn.functional as F
 
 from repro_torch.core import attention, tips
 from repro_torch.kernels.bitslice_matmul.ops import bitslice_matmul
+from repro_torch.kernels.patch_bitmap.ops import (
+    patch_bitmap as _patch_bitmap_op)
+from repro_torch.kernels.patch_reuse.ops import patch_delta as _patch_delta_op
 from repro_torch.kernels.runtime import resolve_device
 
 _CHOICES = {
     "self_attention": ("reference", "fused"),
     "cross_attention": ("reference", "fused"),
     "ffn": ("reference", "dbsc"),
+    "bitmap": ("reference", "kernel"),
+    "reuse": ("reference", "kernel"),
 }
 
 
@@ -33,6 +41,8 @@ class KernelPolicy:
     self_attention: str = "reference"
     cross_attention: str = "reference"
     ffn: str = "reference"
+    bitmap: str = "reference"
+    reuse: str = "reference"
 
     def __post_init__(self):
         for op, allowed in _CHOICES.items():
@@ -48,16 +58,17 @@ class KernelPolicy:
 
     @classmethod
     def fused(cls) -> "KernelPolicy":
-        """Both attentions through their kernels; the FFN stays on the
-        float reference (DBSC is a precision feature, selected by ``ffn``)."""
-        return cls(self_attention="fused", cross_attention="fused")
+        """Both attentions, the PSXU bitmap and the patch delta through
+        their kernels; the FFN stays on the float reference (DBSC is a
+        precision feature, selected by ``ffn``)."""
+        return cls(self_attention="fused", cross_attention="fused",
+                   bitmap="kernel", reuse="kernel")
 
     @classmethod
     def auto(cls, device=None) -> "KernelPolicy":
         """``fused`` + ``dbsc`` when ``device`` is the card, else reference."""
         if resolve_device(device).type == "cuda":
-            return cls(self_attention="fused", cross_attention="fused",
-                       ffn="dbsc")
+            return dataclasses.replace(cls.fused(), ffn="dbsc")
         return cls.reference()
 
 
@@ -142,3 +153,23 @@ def cross_attention(policy: KernelPolicy, q, k_text, v_text, *,
 def ffn_geglu(policy: KernelPolicy, hn, p, important, precision=None):
     """(B, T, C) normed hidden -> (B, T, C) FFN output (pre-residual)."""
     return _FFN[policy.ffn](hn, p, important, precision)
+
+
+def patch_bitmap(policy: KernelPolicy, sas, patch: int, threshold: float):
+    """PSXU payload op: (..., Tq, Tk) SAS -> packed XOR bitmap
+    (..., Tq, Tk/32) uint32 and per-patch popcounts (..., Tq, Tk/patch)."""
+    return _patch_bitmap_op(sas, patch, threshold,
+                            use_kernel=policy.bitmap == "kernel")
+
+
+def patch_delta(policy: KernelPolicy, x, x_ref, *, patch: int,
+                threshold: float):
+    """Temporal-reuse change detection via the policy's implementation.
+
+    (B, T, C) tokens vs cached reference -> ((B, P) float32 max-abs patch
+    delta, (B, P) bool active bitmap).  Both routes take the max over the
+    same values, so the bitmap and every reuse counter downstream are
+    bit-identical across routing.
+    """
+    return _patch_delta_op(x, x_ref, patch=patch, threshold=threshold,
+                           use_kernel=policy.reuse == "kernel")

@@ -1,0 +1,41 @@
+"""Launch wrapper of the hand-written PSXU patch-bitmap kernel
+(``csrc/patch_bitmap.cu``; replaces the TPU kernel
+``repro/kernels/patch_bitmap/kernel.py: patch_bitmap_kernel``)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.runtime import launch_counter
+
+LAUNCHES = launch_counter("patch_bitmap")
+# patches the kernel takes: divisors of 32, or 32 times a power of two
+PATCHES = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+
+
+def patch_bitmap_kernel(sas: torch.Tensor, patch: int, threshold: float):
+    """(R, Tk) float32 SAS on the card -> (packed (R, Tk/32) uint32,
+    counts (R, Tk/patch) int32).  Launches the CUDA kernel or raises."""
+    if not sas.is_cuda:
+        raise ValueError("patch_bitmap: sas must be a CUDA tensor")
+    if sas.dtype != torch.float32 or sas.ndim != 2:
+        raise ValueError(f"patch_bitmap: sas must be a 2-D float32 tensor, "
+                         f"got {sas.dtype} {tuple(sas.shape)}")
+    if not sas.is_contiguous():
+        raise ValueError("patch_bitmap: sas must be contiguous")
+    rows, tk = sas.shape
+    if patch not in PATCHES or tk % 32 or tk % patch:
+        raise ValueError(f"patch_bitmap: patch {patch} must be one of "
+                         f"{PATCHES} and divide Tk={tk}, a multiple of 32")
+    lib = build.library()
+    packed = torch.empty((rows, tk // 32), dtype=torch.uint32,
+                         device=sas.device)
+    counts = torch.empty((rows, tk // patch), dtype=torch.int32,
+                         device=sas.device)
+    stream = torch.cuda.current_stream(sas.device).cuda_stream
+    err = lib.launch_patch_bitmap(sas.data_ptr(), packed.data_ptr(),
+                                  counts.data_ptr(), rows, tk, patch,
+                                  threshold, stream)
+    build.check(err, "patch_bitmap")
+    LAUNCHES.bump()
+    return packed, counts

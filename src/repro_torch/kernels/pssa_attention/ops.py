@@ -14,13 +14,19 @@ from repro_torch.kernels.pssa_attention.ref import pssa_attention_stats_ref
 
 def pssa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    threshold: float, patch: int):
-    """(B, H, T, d) q/k/v -> (out (B, H, T, d), nnz (B, H, T),
-    xor_ones (B, H, T)); ``patch`` must divide T."""
+    """(B, H, Tq, d) q x (B, H, Tk, d) k/v -> (out (B, H, Tq, d),
+    nnz (B, H, Tq), xor_ones (B, H, Tq)); ``patch`` must divide Tk.
+
+    Tq may differ from Tk: temporal reuse gathers the queries to the
+    active patch rows while the keys stay dense.
+    """
     b, h, t, d = q.shape
-    if t % patch:
-        raise ValueError(f"pssa_attention: T={t} is not a multiple of "
+    tk = k.shape[2]
+    if tk % patch:
+        raise ValueError(f"pssa_attention: Tk={tk} is not a multiple of "
                          f"patch {patch}")
-    qf, kf, vf = (x.reshape(b * h, t, d).contiguous() for x in (q, k, v))
+    qf = q.reshape(b * h, t, d).contiguous()
+    kf, vf = (x.reshape(b * h, tk, d).contiguous() for x in (k, v))
     if q.is_cuda:
         out, nnz, xor_ones = pssa_attention_kernel(qf, kf, vf, threshold,
                                                    patch)

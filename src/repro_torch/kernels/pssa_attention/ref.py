@@ -11,7 +11,8 @@ from repro_torch.core import pssa
 
 def pssa_attention_stats_ref(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, threshold: float, patch: int):
-    """(BH, T, d) -> (out, nnz, xor_ones), materializing the (BH, T, T) SAS.
+    """(BH, Tq, d) q x (BH, Tk, d) k/v -> (out, nnz, xor_ones),
+    materializing the (BH, Tq, Tk) SAS; ``patch`` must divide Tk.
 
     ``nnz`` and ``xor_ones`` are per-query int32 counts: surviving scores,
     and ones of the patch-XOR'd keep bitmap.

@@ -6,8 +6,11 @@ the card.  Imports no JAX, so it runs where the port runs:
 Without a CUDA device every test skips.  Tolerances: PSSA counters and
 DBSC integers exact (these shapes hold no score within an ulp of the
 threshold); attention outputs rtol 1e-4, atol 1e-5 and CAS atol 1e-6
-(float32 in another summation order).
+(float32 in another summation order); the patch delta and the PSXU bitmap
+bit for bit (a max and a compare need no order), NaN where NaN.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -20,7 +23,12 @@ from repro_torch.kernels.cross_attention_tips.kernel import (
     cross_attention_tips_kernel)
 from repro_torch.kernels.cross_attention_tips.ref import (
     cross_attention_tips_ref)
+from repro_torch.core.reuse import ReusePolicy
 from repro_torch.kernels.dispatch import KernelPolicy
+from repro_torch.kernels.patch_bitmap.kernel import patch_bitmap_kernel
+from repro_torch.kernels.patch_bitmap.ref import patch_bitmap_ref
+from repro_torch.kernels.patch_reuse.kernel import patch_delta_kernel
+from repro_torch.kernels.patch_reuse.ref import patch_delta_ref
 from repro_torch.kernels.pssa_attention.kernel import pssa_attention_kernel
 from repro_torch.kernels.pssa_attention.ref import pssa_attention_stats_ref
 
@@ -46,6 +54,55 @@ def test_pssa_kernel_matches_plain(cuda, bh, t, d, patch):
     out_p, nnz_p, xr_p = pssa_attention_stats_ref(q, k, v, THR, patch)
     assert torch.equal(nnz, nnz_p) and torch.equal(xr, xr_p)
     torch.testing.assert_close(out, out_p, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bh,tq,tk,d,patch", [(4, 32, 256, 40, 16),
+                                              (2, 128, 1024, 80, 64)])
+def test_pssa_kernel_gathered_queries_match_plain(cuda, bh, tq, tk, d,
+                                                  patch):
+    g = torch.Generator(device=cuda).manual_seed(tq + tk)
+    q = torch.randn((bh, tq, d), generator=g, device=cuda)
+    k, v = (torch.randn((bh, tk, d), generator=g, device=cuda)
+            for _ in range(2))
+    out, nnz, xr = pssa_attention_kernel(q, k, v, THR, patch)
+    out_p, nnz_p, xr_p = pssa_attention_stats_ref(q, k, v, THR, patch)
+    assert torch.equal(nnz, nnz_p) and torch.equal(xr, xr_p)
+    torch.testing.assert_close(out, out_p, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,p,w", [(2, 64, 20480), (1, 16, 20480),
+                                   (3, 7, 2050), (2, 5, 3)])
+def test_patch_delta_kernel_matches_plain(cuda, b, p, w):
+    g = torch.Generator(device=cuda).manual_seed(p * w)
+    x = torch.randn((b, p, w), generator=g, device=cuda)
+    r = x + 0.01 * torch.randn((b, p, w), generator=g, device=cuda)
+    r[:, 0] = x[:, 0]                           # a patch with delta 0
+    x[-1, -1, -1] = float("nan")
+    r[0, p // 2, 0] = float("inf")
+    out = patch_delta_kernel(x, r)
+    plain = patch_delta_ref(x, r, 1)      # (B, P, W) as P one-token patches
+    nan = torch.isnan(plain)
+    assert torch.equal(torch.isnan(out), nan) and bool(nan[-1, -1])
+    assert torch.equal(out[~nan].view(torch.int32),
+                       plain[~nan].view(torch.int32))
+    assert bool((out[:, 0] == 0).all())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rows,tk,patch", [(70, 64, 16), (33, 256, 16),
+                                           (64, 1024, 32), (40, 4096, 64),
+                                           (5, 96, 32)])
+def test_patch_bitmap_kernel_matches_plain(cuda, rows, tk, patch):
+    g = torch.Generator(device=cuda).manual_seed(rows + tk)
+    sas = torch.softmax(3.0 * torch.randn((rows, tk), generator=g,
+                                          device=cuda), dim=-1)
+    sas[0, :3] = THR                            # on the threshold: kept
+    packed, counts = patch_bitmap_kernel(sas, patch, THR)
+    packed_p, counts_p = patch_bitmap_ref(sas, patch, THR)
+    assert torch.equal(packed.view(torch.int32), packed_p.view(torch.int32))
+    assert torch.equal(counts, counts_p)
 
 
 @pytest.mark.requires_cuda
@@ -91,4 +148,32 @@ def test_smoke_engine_goes_through_the_kernels(cuda):
     assert counts["pssa_attention"] == steps * blocks
     assert counts["cross_attention_tips"] == steps * blocks
     assert counts["bitslice_matmul"] == 2 * steps * blocks
+    assert counts.get("patch_delta", 0) == 0
     assert bool(torch.isfinite(out.images).all())
+
+
+@pytest.mark.requires_cuda
+def test_smoke_temporal_reuse_goes_through_the_kernels(cuda):
+    cfg = bk_sdm.with_kernel_policy(bk_sdm.SMOKE, KernelPolicy.auto(cuda))
+    dense = DiffusionEngine(cfg)
+    params = {"text": dense.text_params, "unet": dense.unet_params,
+              "vae": dense.vae_params}
+    toks = torch.zeros((1, cfg.text.max_len), dtype=torch.int32,
+                       device=cuda)
+    lat = dense.init_latents(1, torch.Generator(device=cuda).manual_seed(1))
+    out_d = dense.generate(toks, latents=lat.clone())
+    steps, blocks = cfg.ddim.num_inference_steps, 9
+    for reuse in (ReusePolicy.temporal(0.0), ReusePolicy.temporal(0.05)):
+        rcfg = dataclasses.replace(cfg, unet=dataclasses.replace(
+            cfg.unet, reuse_policy=reuse))
+        runtime.reset_launch_counts()
+        out = DiffusionEngine(rcfg, params=params).generate(
+            toks, latents=lat.clone())
+        counts = runtime.launch_counts()
+        assert counts["patch_delta"] == steps * blocks
+        assert counts["pssa_attention"] == steps * blocks
+        if reuse.threshold == 0.0:
+            assert torch.equal(out.latents, out_d.latents)
+        for c in out.stats.reuse:
+            assert bool((c.computed <= c.total).all())
+            assert torch.equal(c.computed[0], c.total[0])

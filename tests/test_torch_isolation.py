@@ -24,6 +24,9 @@ bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "repro"
              or n.startswith("repro."))
 print("MODULES", len([n for n in sys.modules if n.startswith("repro_torch")]))
+print("NEW", sorted(n for n in sys.modules
+                    if n.startswith(("repro_torch.core.reuse",
+                                     "repro_torch.kernels.patch_"))))
 print("BAD", bad)
 """
 
@@ -36,6 +39,11 @@ def test_port_imports_neither_jax_nor_repro():
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
     assert int(lines["MODULES"]) > 20
     assert lines["BAD"] == "[]", lines["BAD"]
+    new = ast.literal_eval(lines["NEW"])
+    assert "repro_torch.core.reuse" in new
+    for kern in ("patch_reuse", "patch_bitmap"):
+        for mod in ("kernel", "ops", "ref"):
+            assert f"repro_torch.kernels.{kern}.{mod}" in new
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -93,4 +101,6 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     assert len(build.source_hash()) == 16
     assert [p.name for p in build.sources()] == [
         "bitslice_matmul.cu", "cross_attention_tips.cu",
-        "pssa_attention.cu"]
+        "patch_bitmap.cu", "patch_delta.cu", "pssa_attention.cu"]
+    assert set(build._SIGNATURES) == {
+        f"launch_{p.stem}" for p in build.sources()}

@@ -175,8 +175,11 @@ def test_bitslice_matmul_rejects_unknown_dataflow():
 def test_kernel_policy_presets():
     assert TKP.reference() == TKP()
     assert TKP.fused() == TKP(self_attention="fused",
-                              cross_attention="fused", ffn="reference")
+                              cross_attention="fused", ffn="reference",
+                              bitmap="kernel", reuse="kernel")
     assert TKP.auto("cpu") == TKP.reference()
+    with pytest.raises(ValueError, match="reuse"):
+        TKP(reuse="fused")
     with pytest.raises(ValueError, match="ffn"):
         TKP(ffn="int8")
 

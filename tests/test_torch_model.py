@@ -103,8 +103,9 @@ def test_transformer_block_matches_jax(unet_params, route, dup):
                                    stats_rows=1, dup_after_self=dup))
     oj, sj, rj, _ = fn(jnp.asarray(x), bj, jnp.asarray(ctx),
                        tips_active=jnp.asarray(True))
-    ot, st, rt = t_unet._transformer_block(_t(x), bt, _t(ctx), tcfg, True,
-                                           stats_rows=1, dup_after_self=dup)
+    ot, st, rt, _ = t_unet._transformer_block(_t(x), bt, _t(ctx), tcfg,
+                                              True, stats_rows=1,
+                                              dup_after_self=dup)
     assert ot.shape == (2, 16, 16, 32)
     _pssa_equal(sj, st)
     _tips_equal(rj, rt)
