@@ -12,6 +12,8 @@ no result line):
                  gives it (plus a ragged case) against its plain PyTorch
                  version on the card, with times, bounds and tolerances;
                  PSSA also with gathered queries (Tq = T/8, the edit path);
+                 the SSD scan at the serve prompt, the CLI's default
+                 prompt, a ragged T and a large dt;
 4. slice       — full-width BK-SDM-Tiny text-to-image, 25 DDIM steps at
                  guidance 7.5, through ``DiffusionEngine.generate`` on the
                  kernel route; launch counters must read 225/225/450;
@@ -34,6 +36,17 @@ no result line):
                  reference route against the fused route with temporal
                  reuse; latents, ledger headlines and per-layer PSSA and
                  reuse counters must agree within the limits below.
+9. serve       — mamba2-130m at full width (random weights from a seed)
+                 through ``repro_torch.launch.serve.serve``: batch 4, a
+                 4096-token prompt, 64 greedy tokens, prefill's scan on the
+                 ``ssd_scan`` kernel (24 launches, none in decode); the
+                 kernel route against the chunked bf16 route layer by
+                 layer, at 2 layers and at 24; the float32 model's 24
+                 layers on the kernel against the same model on the plain
+                 recurrence (logits and final state); prefill(T) + one
+                 decode step against prefill(T + 1) in float32 and bf16,
+                 with a zeroed-state control; profiles of prefill and
+                 decode.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
@@ -41,7 +54,9 @@ or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -80,6 +95,36 @@ REUSE_TIE_REL = 1e-3        # |delta - thr| / thr at a flipped patch: a tie
 EDIT_CAPACITY = 0.125
 EDIT_WINDOW = (4, 4, 8, 8)  # latent pixels (y0, x0, h, w) re-noised
 L2_BYTES = 50e6             # H100 L2: timed inputs rotate past it
+# SSD scan kernel against the sequential recurrence, |k - p| <= tol (1 +
+# |p|): the JAX package's bound for its chunked kernel against its oracle
+SSD_TOL = 2e-4
+# serve: mamba2-130m, batch 4, a 4096-token prompt (chunk 128), 64 tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4096, 64
+# prefill logits, kernel route against the chunked route (which rounds its
+# diagonal-block operands to bf16), relative to the largest logit: the
+# JAX package's own bound for this pair
+ROUTE_RTOL = 2e-2
+# The pair compounds with depth: the JAX package's own pair passes 2e-2
+# at 2 layers and reads 4.3e-2 at 24 (tests/test_torch_ssm.py::
+# test_route_pair_grows_with_depth_as_in_jax).  So each layer (on the same
+# input) and the first 2 layers are held to ROUTE_RTOL, and the logits of
+# all 24 only to ROUTE_DEEP_RTOL, a bound on the bf16 drift of the chunked
+# route, not a check of the kernel.
+ROUTE_DEEP_RTOL = 1e-1
+# The full-depth check of the kernel: the float32 model's prefill logits
+# and final state on the kernel against the same model on the plain
+# float32 recurrence (ssd_scan_fused(use_kernel=False)) on the card.  No
+# bf16 rounding on either side; only the sum order differs.
+DEEP_F32_RTOL = 1e-4
+# prefill(T) + one decode step against prefill(T + 1), relative to the
+# largest logit.  float32 (weights and activations): only sum order
+# differs, so the final state must carry over to ~float32 precision.
+# bfloat16 (the model as served): decode rounds the conv and the
+# projections at other points than prefill's T + 1 run, and that compounds
+# over 24 layers; the same decode step from a zeroed state (the control)
+# must land past the limit, so the limit can tell a lost state.
+CARRY_F32_RTOL = 1e-4
+CARRY_RTOL = 1e-1
 
 REPLACES = {
     "pssa_attention":
@@ -92,6 +137,8 @@ REPLACES = {
         "src/repro/kernels/patch_reuse/kernel.py:40",
     "patch_bitmap":
         "src/repro/kernels/patch_bitmap/kernel.py:58",
+    "ssd_scan":
+        "src/repro/kernels/ssd_scan/kernel.py:92",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 
@@ -487,7 +534,244 @@ def kernels_phase(torch):
     rows.update(patch_delta_rows(
         torch, torch.Generator(device="cuda").manual_seed(4321),
         patch_delta_kernel, patch_delta_ref))
+    rows.update(ssd_scan_rows(
+        torch, torch.Generator(device="cuda").manual_seed(5678)))
     return rows
+
+
+def ssd_scan_rows(torch, g) -> dict:
+    """The SSD scan kernel against its plain version (the sequential
+    recurrence, on the TPU kernel's folded contract: B and C copied per
+    head) at the serve prompt, the CLI's default prompt, a ragged T and a
+    large dt whose |dA| sums past 88 inside a chunk.  The kernel reads the
+    model's per-batch B and C in place (``heads=24``), as the main path
+    gives them.  Inputs as in tests/test_ssd_kernel.py."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.runtime import cuda_ms
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+    from repro_torch.kernels.ssd_scan.ops import pick_chunk
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    rows = {}
+    p, n, heads = 64, 128, 24
+    # (label, batch, T, dt scale, main)
+    for label, b, t, dts, main in [
+            ("serve prefill T=4096", 4, 4096, 1.0, True),
+            ("CLI default prompt T=32", 4, 32, 1.0, False),
+            ("ragged T=4000", 4, 4000, 1.0, False),
+            ("large dt T=512", 1, 512, 12.0, False)]:
+        bh, chunk = b * heads, pick_chunk(t, 128)
+        set_bytes = 4 * (bh * t * p + bh * t + 2 * b * t * n)
+        sets = []
+        for _ in range(max(2, math.ceil(2 * L2_BYTES / set_bytes))):
+            x = torch.randn((bh, t, p), generator=g, device="cuda")
+            dA = -dts * F.softplus(torch.randn((bh, t), generator=g,
+                                               device="cuda"))
+            B, C = (0.3 * torch.randn((b, t, n), generator=g, device="cuda")
+                    for _ in range(2))
+            sets.append((x, dA, B, C))
+        x, dA, B, C = sets[0]
+        if dts > 1:
+            most = float(-dA[:, :chunk].sum(dim=1).min())
+            require(most > 88.0, f"ssd_scan {label}: |dA| sums to {most} in "
+                                 f"a chunk, not past 88")
+        y, s = ssd_scan_kernel(x, dA, B, C, chunk=chunk, heads=heads)
+        torch.cuda.synchronize()
+        Bh, Ch = (a.repeat_interleave(heads, 0) for a in (B, C))
+        y_p, s_p = ssd_scan_ref(x, dA, Bh, Ch, chunk=chunk)
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+        err = max((y - y_p).abs().max().item(), (s - s_p).abs().max().item())
+        excess = max(((y - y_p).abs() / (1 + y_p.abs())).max().item(),
+                     ((s - s_p).abs() / (1 + s_p.abs())).max().item())
+        print(f"  ssd_scan {label}: BH {bh} chunk {chunk}, y/state max|err| "
+              f"{err:.3e} (max |err|/(1+|p|) {excess:.3e}), finite {finite}")
+        require(finite, f"ssd_scan {label}: NaN or inf in the output")
+        require(excess <= SSD_TOL, f"ssd_scan {label}: error {excess:.3e} > "
+                                   f"{SSD_TOL} (1 + |plain|)")
+        ms = rotating_ms(torch, lambda *a: ssd_scan_kernel(
+            *a, chunk=chunk, heads=heads), sets, reps=10, warmup=2)
+        plain_ms = cuda_ms(ssd_scan_ref, x, dA, Bh, Ch, chunk, reps=2,
+                           warmup=1)
+        # per chunk of l steps: C B^T and ((C B^T) o L) @ x on the causal
+        # half only (l (l + 1) / 2 pairs of 2n and 2p flops; L is zero
+        # above the diagonal), C @ state^T and x^T @ B (2pn each per step);
+        # B and C read once per batch row, in place
+        ops = 1.0 * bh * t * ((chunk + 1) * (n + p) + 4 * p * n)
+        nbytes = 4.0 * (2 * bh * t * p + bh * t + 2 * b * t * n
+                        + bh * p * n)
+        kernel_row(rows, "ssd_scan", label, [bh, t, p, n, chunk, heads], ms,
+                   plain_ms, bound(nbytes, ops, FP32_FLOPS), err, main)
+        del sets, x, dA, B, C, y, s, Bh, Ch, y_p, s_p
+    return rows
+
+
+def _rel(a, ref) -> float:
+    a, ref = a.float(), ref.float()
+    return ((a - ref).abs().max() / ref.abs().max()).item()
+
+
+def _tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _route_pair_per_layer(torch, cfg, params, prompts) -> list:
+    """Each layer's mixer, kernel route against chunked route, on the same
+    input: the kernel route's own activations at that layer."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as SSM
+    chunked = cfg.scaled(use_ssd_kernel=False)
+    x = L.embed(prompts, params["embed"])
+    pairs = []
+    for i in range(cfg.num_layers):
+        lp = _tree(lambda a: a[i], params["layers"])
+        xa = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        hk = SSM.mamba_mixer(xa, lp["ssm"], cfg)
+        pairs.append(_rel(hk, SSM.mamba_mixer(xa, lp["ssm"], chunked)))
+        x = x + hk
+    return pairs
+
+
+@contextlib.contextmanager
+def _plain_scan():
+    """Route the model's ``ssd_scan_fused`` to its plain recurrence
+    (``use_kernel=False``) inside the block."""
+    from repro_torch.models import ssm as SSM
+    fused = SSM.ssd_scan_fused
+    SSM.ssd_scan_fused = functools.partial(fused, use_kernel=False)
+    try:
+        yield
+    finally:
+        SSM.ssd_scan_fused = fused
+
+
+@phase("serve")
+def serve_phase(torch):
+    """mamba2-130m at full width through the port's serve entry point."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch("mamba2-130m").scaled(use_ssd_kernel=True)
+    require((cfg.num_layers, cfg.d_model, cfg.d_inner, cfg.ssm_heads,
+             cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv_width,
+             cfg.vocab_size, cfg.dtype) == (24, 768, 1536, 24, 64, 128, 4,
+                                            50280, "bfloat16"),
+            "not the published mamba2-130m geometry")
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+    torch.cuda.synchronize()
+    print(f"full-width parameters initialised in "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(1), device="cuda")
+    serve(cfg, params, prompts[:, :256], 2)            # warm-up
+    runtime.reset_launch_counts()
+    tokens, tm = serve(cfg, params, prompts, SERVE_NEW)
+    counts = runtime.launch_counts()
+    print(f"launches {json.dumps(tm['launches'])}")
+    layers = cfg.num_layers
+    require(tm["launches"]["prefill"].get("ssd_scan") == layers
+            and counts.get("ssd_scan") == layers,
+            f"ssd_scan launches in prefill {tm['launches']['prefill']} "
+            f"!= {layers}")
+    require(tm["launches"]["decode"].get("ssd_scan", 0) == 0,
+            f"ssd_scan launched in decode: {tm['launches']['decode']}")
+    require(tuple(tokens.shape) == (SERVE_BATCH, SERVE_NEW)
+            and int(tokens.min()) >= 0
+            and int(tokens.max()) < cfg.vocab_size,
+            f"tokens {tuple(tokens.shape)} out of shape or vocabulary")
+    steps = tm["decode_steps"]
+    print(f"serve: prefill s {tm['prefill_s']:.4f} "
+          f"({SERVE_BATCH * SERVE_PROMPT / tm['prefill_s']:.0f} prompt "
+          f"tokens/s); decode ms/token {tm['decode_s'] / steps * 1e3:.3f} "
+          f"(one step of the batch of {SERVE_BATCH}), decode tokens/s "
+          f"{SERVE_BATCH * steps / tm['decode_s']:.1f}; {steps} steps")
+
+    with torch.inference_mode():
+        lk, cache = T.prefill(params, cfg, tokens=prompts)
+        lc, _ = T.prefill(params, cfg.scaled(use_ssd_kernel=False),
+                          tokens=prompts)
+        per_layer = _route_pair_per_layer(torch, cfg, params, prompts)
+        # the pair at the depth of the JAX package's own test (2 layers)
+        cfg2 = cfg.scaled(num_layers=2)
+        p2 = dict(params, layers=_tree(lambda a: a[:2], params["layers"]))
+        lk2, _ = T.prefill(p2, cfg2, tokens=prompts)
+        lc2, _ = T.prefill(p2, cfg2.scaled(use_ssd_kernel=False),
+                           tokens=prompts)
+        nxt = tokens[:, :1]
+        longer = torch.cat([prompts, nxt], dim=1)
+        ld, _ = T.decode_step(params, cache, nxt, SERVE_PROMPT, cfg)
+        lf, _ = T.prefill(params, cfg, tokens=longer)
+        lost = dict(cache, state=torch.zeros_like(cache["state"]))
+        ld0, _ = T.decode_step(params, lost, nxt, SERVE_PROMPT, cfg)
+        f32 = cfg.scaled(dtype="float32")
+        p32 = _tree(lambda a: a.float(), params)
+        lk32, c32 = T.prefill(p32, f32, tokens=prompts)
+        ld32, _ = T.decode_step(p32, c32, nxt, SERVE_PROMPT, f32)
+        lf32, _ = T.prefill(p32, f32, tokens=longer)
+        before = runtime.launch_counts().get("ssd_scan", 0)
+        with _plain_scan():
+            lp32, cp32 = T.prefill(p32, f32, tokens=prompts)
+        require(runtime.launch_counts().get("ssd_scan", 0) == before,
+                "the plain float32 prefill launched ssd_scan")
+    require(all(bool(torch.isfinite(a).all())
+                for a in (lk, lc, lk2, lc2, ld, lf, lk32, lp32, ld32, lf32)),
+            "non-finite logits")
+    require(torch.equal(lk[:, -1].argmax(dim=-1), tokens[:, 0]),
+            "serve's first token is not prefill's argmax")
+    route, route2 = _rel(lk, lc), _rel(lk2, lc2)
+    carry, control, carry32 = _rel(ld, lf), _rel(ld0, lf), _rel(ld32, lf32)
+    deep32 = _rel(lk32, lp32)
+    state32 = _rel(c32["state"], cp32["state"])
+    worst = max(per_layer)
+    print(f"  kernel route against the chunked bf16 route: each layer's "
+          f"mixer on the same input, worst {worst:.3e} (layer "
+          f"{per_layer.index(worst)}; limit {ROUTE_RTOL}); prefill logits "
+          f"of the first 2 layers {route2:.3e} (limit {ROUTE_RTOL}); of all "
+          f"{layers} {route:.3e} (bf16 drift bound {ROUTE_DEEP_RTOL})")
+    print(f"  float32 model, {layers} layers, kernel against the plain "
+          f"recurrence: prefill logits {deep32:.3e}, final state "
+          f"{state32:.3e} (limit {DEEP_F32_RTOL})")
+    print(f"  prefill(T={SERVE_PROMPT}) + decode_step against prefill(T+1) "
+          f"(chunk 1): float32 {carry32:.3e} (limit {CARRY_F32_RTOL}); "
+          f"bf16 {carry:.3e} (limit {CARRY_RTOL}); bf16 with the state "
+          f"zeroed (control) {control:.3e} (must exceed {CARRY_RTOL})")
+    require(worst <= ROUTE_RTOL, f"a layer's route pair {worst:.3e} > "
+                                 f"{ROUTE_RTOL}")
+    require(route2 <= ROUTE_RTOL, f"2-layer route pair {route2:.3e} > "
+                                  f"{ROUTE_RTOL}")
+    require(route <= ROUTE_DEEP_RTOL, f"route pair {route:.3e} > "
+                                      f"{ROUTE_DEEP_RTOL}")
+    require(max(deep32, state32) <= DEEP_F32_RTOL,
+            f"float32 kernel against plain at full depth: logits "
+            f"{deep32:.3e}, state {state32:.3e} > {DEEP_F32_RTOL}")
+    require(carry32 <= CARRY_F32_RTOL,
+            f"float32 carry {carry32:.3e} > {CARRY_F32_RTOL}")
+    require(carry <= CARRY_RTOL < control,
+            f"bf16 carry {carry:.3e} / control {control:.3e} against "
+            f"{CARRY_RTOL}")
+
+    def prefill_run():
+        return serve(cfg, params, prompts, 1)[1]["prefill_s"]
+
+    def decode_run():
+        c, tok = cache, nxt
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(16):
+                logits, c = T.decode_step(params, c, tok, SERVE_PROMPT + i,
+                                          cfg)
+                tok = logits[:, -1].argmax(dim=-1)[:, None]
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    profile_breakdown(torch, prefill_run, "serve prefill")
+    profile_breakdown(torch, decode_run, "serve decode (16 steps)")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1120,6 +1404,7 @@ def main() -> int:
         reuse_counts, dense_s = temporal_phase(torch, eng)
         edit_phase(torch, eng, dense_s)
         parity_phase(torch, eng)
+        serve_counts = serve_phase(torch)
     except Exception as exc:                      # report, then fail
         import traceback
         traceback.print_exc()
@@ -1127,9 +1412,11 @@ def main() -> int:
         return 1
     rows.update(bitmap_rows)
     # each kernel's launches on its own path: the slice for the three of
-    # the dense path, the temporal run and the bitmap entry point
+    # the dense path, the temporal run, the bitmap entry point and the
+    # serve run's prefill
     counts = dict(counts, patch_delta=reuse_counts["patch_delta"],
-                  patch_bitmap=bitmap_counts["patch_bitmap"])
+                  patch_bitmap=bitmap_counts["patch_bitmap"],
+                  ssd_scan=serve_counts["ssd_scan"])
     for name, row in rows.items():
         row["launches"] = counts[name]
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -10,6 +10,14 @@ torch tensors on ``device``.  Layout changes:
 * everything else (biases, norms, embeddings) is copied as is.
 
 The text encoder has no conv weights, so its tree is copied unchanged.
+
+``convert_lm_params`` takes the language-model tree
+(``jax.device_get(transformer.init_params(...))``) and changes no layout:
+the same nesting, the leading L axis of the stacked layer leaves kept.
+
+bfloat16 leaves (numpy's ``bfloat16`` from ml_dtypes, which
+``torch.from_numpy`` refuses) cross as their uint16 bits and are viewed
+back as ``torch.bfloat16``: the values are carried bit for bit.
 """
 from __future__ import annotations
 
@@ -17,8 +25,18 @@ import numpy as np
 import torch
 
 
+def _tensor(arr: np.ndarray, device) -> torch.Tensor:
+    """One numpy array -> a tensor on ``device``, bfloat16 included."""
+    arr = np.array(arr, copy=True, order="C")
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
 def convert_tree(tree, device="cpu"):
-    """One JAX parameter tree (numpy leaves) -> the port's tensors."""
+    """One JAX diffusion parameter tree (numpy leaves) -> the port's
+    tensors."""
     if isinstance(tree, dict):
         return {k: convert_tree(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -26,7 +44,18 @@ def convert_tree(tree, device="cpu"):
     arr = np.asarray(tree)
     if arr.ndim == 4:                             # HWIO -> OIHW
         arr = arr.transpose(3, 2, 0, 1)
-    return torch.from_numpy(np.array(arr, copy=True, order="C")).to(device)
+    return _tensor(arr, device)
+
+
+def convert_lm_params(tree, device="cpu"):
+    """The JAX language-model parameter tree (numpy leaves) -> the port's
+    tree for ``repro_torch.models.transformer``: same nesting, same
+    shapes, same dtypes."""
+    if isinstance(tree, dict):
+        return {k: convert_lm_params(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [convert_lm_params(v, device) for v in tree]
+    return _tensor(np.asarray(tree), device)
 
 
 def convert_params(text, unet, vae, device="cpu") -> dict:

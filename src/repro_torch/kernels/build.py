@@ -116,6 +116,8 @@ _SIGNATURES = {
     "launch_patch_delta": [_P, _P, _P, _I, _I, _I, _P],
     # sas, packed, counts, rows, tk, patch, threshold, stream
     "launch_patch_bitmap": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # x, dA, B, C, y, state, bh, t, p, n, chunk, heads, stream
+    "launch_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

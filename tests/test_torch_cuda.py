@@ -7,7 +7,9 @@ Without a CUDA device every test skips.  Tolerances: PSSA counters and
 DBSC integers exact (these shapes hold no score within an ulp of the
 threshold); attention outputs rtol 1e-4, atol 1e-5 and CAS atol 1e-6
 (float32 in another summation order); the patch delta and the PSXU bitmap
-bit for bit (a max and a compare need no order), NaN where NaN.
+bit for bit (a max and a compare need no order), NaN where NaN; the SSD
+scan rtol/atol 2e-4 against the sequential recurrence (the JAX package's
+bound for its chunked kernel against its oracle).
 """
 import dataclasses
 
@@ -31,6 +33,8 @@ from repro_torch.kernels.patch_reuse.kernel import patch_delta_kernel
 from repro_torch.kernels.patch_reuse.ref import patch_delta_ref
 from repro_torch.kernels.pssa_attention.kernel import pssa_attention_kernel
 from repro_torch.kernels.pssa_attention.ref import pssa_attention_stats_ref
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 THR = 1.0 / 8192.0
 
@@ -177,3 +181,59 @@ def test_smoke_temporal_reuse_goes_through_the_kernels(cuda):
         for c in out.stats.reuse:
             assert bool((c.computed <= c.total).all())
             assert torch.equal(c.computed[0], c.total[0])
+
+
+def _ssd_inputs(cuda, bh, t, p, n, heads, dt_scale, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((bh, t, p), generator=g, device=cuda)
+    dA = -dt_scale * torch.nn.functional.softplus(
+        torch.randn((bh, t), generator=g, device=cuda))
+    B, C = (0.3 * torch.randn((bh // heads, t, n), generator=g, device=cuda)
+            for _ in range(2))
+    return x, dA, B, C
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bh,t,p,n,chunk,heads", [
+    (16, 128, 16, 8, 32, 8), (16, 128, 16, 8, 128, 8),   # smoke model
+    (4, 256, 64, 128, 128, 2), (6, 100, 16, 16, 100, 1),  # chunk % 32 != 0
+    (4, 97, 16, 8, 1, 2), (2, 256, 32, 16, 256, 1)])     # chunk 1, > 128
+def test_ssd_scan_kernel_matches_plain(cuda, bh, t, p, n, chunk, heads):
+    x, dA, B, C = _ssd_inputs(cuda, bh, t, p, n, heads, 1.0, t + p)
+    y, s = ssd_scan_kernel(x, dA, B, C, chunk=chunk, heads=heads)
+    y_p, s_p = ssd_scan_ref(x, dA, B.repeat_interleave(heads, 0),
+                            C.repeat_interleave(heads, 0))
+    torch.testing.assert_close(y, y_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, s_p, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.requires_cuda
+def test_ssd_scan_kernel_large_dt_has_no_nan(cuda):
+    """|dA| sums past 88 inside a chunk: exp above the diagonal would be
+    inf, and inf * 0 NaN, if the decay tile were masked by a product."""
+    x, dA, B, C = _ssd_inputs(cuda, 4, 256, 64, 128, 1, 12.0, 5)
+    assert float(-dA[0, :128].sum()) > 88.0
+    y, s = ssd_scan_kernel(x, dA, B, C, chunk=128)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    y_p, s_p = ssd_scan_ref(x, dA, B, C)
+    torch.testing.assert_close(y, y_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, s_p, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.requires_cuda
+def test_smoke_prefill_goes_through_the_ssd_kernel(cuda):
+    """One launch per layer in prefill, none in decode."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    cfg = get_arch("mamba2-130m").smoke().scaled(use_ssd_kernel=True)
+    params = T.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), device=cuda)
+    runtime.reset_launch_counts()
+    logits, cache = T.prefill(params, cfg, tokens=toks)
+    assert runtime.launch_counts()["ssd_scan"] == cfg.num_layers
+    T.decode_step(params, cache, logits[:, -1].argmax(-1)[:, None], 128, cfg)
+    assert runtime.launch_counts()["ssd_scan"] == cfg.num_layers
+    plain, _ = T.prefill(params, cfg.scaled(use_ssd_kernel=False),
+                         tokens=toks)
+    assert float((logits - plain).abs().max()
+                 / plain.abs().max()) < 2e-2

@@ -26,7 +26,11 @@ bad = sorted(n for n in sys.modules
 print("MODULES", len([n for n in sys.modules if n.startswith("repro_torch")]))
 print("NEW", sorted(n for n in sys.modules
                     if n.startswith(("repro_torch.core.reuse",
-                                     "repro_torch.kernels.patch_"))))
+                                     "repro_torch.kernels.patch_",
+                                     "repro_torch.configs.",
+                                     "repro_torch.models.",
+                                     "repro_torch.kernels.ssd_scan.",
+                                     "repro_torch.launch."))))
 print("BAD", bad)
 """
 
@@ -41,9 +45,12 @@ def test_port_imports_neither_jax_nor_repro():
     assert lines["BAD"] == "[]", lines["BAD"]
     new = ast.literal_eval(lines["NEW"])
     assert "repro_torch.core.reuse" in new
-    for kern in ("patch_reuse", "patch_bitmap"):
+    for kern in ("patch_reuse", "patch_bitmap", "ssd_scan"):
         for mod in ("kernel", "ops", "ref"):
             assert f"repro_torch.kernels.{kern}.{mod}" in new
+    for mod in ("configs.base", "configs.mamba2_130m", "models.layers",
+                "models.ssm", "models.transformer", "launch.serve"):
+        assert f"repro_torch.{mod}" in new
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -76,6 +83,14 @@ def test_default_device_is_the_card_and_raises_without_one():
     assert DiffusionEngine(SMOKE, device="cpu").device.type == "cpu"
 
 
+def test_serve_runs_on_the_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "mamba2-130m", "--smoke"])
+
+
 def test_chip_smoke_fails_without_card_or_alone(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -101,6 +116,7 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     assert len(build.source_hash()) == 16
     assert [p.name for p in build.sources()] == [
         "bitslice_matmul.cu", "cross_attention_tips.cu",
-        "patch_bitmap.cu", "patch_delta.cu", "pssa_attention.cu"]
+        "patch_bitmap.cu", "patch_delta.cu", "pssa_attention.cu",
+        "ssd_scan.cu"]
     assert set(build._SIGNATURES) == {
         f"launch_{p.stem}" for p in build.sources()}
