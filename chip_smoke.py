@@ -12,6 +12,11 @@ no result line):
                  gives it (plus a ragged case) against its plain PyTorch
                  version on the card, with times, bounds and tolerances;
                  PSSA also with gathered queries (Tq = T/8, the edit path);
+                 the bit-slice matmul bit-exact under both dataflows at
+                 its six shapes, a ragged K = 77 and the int32
+                 wrap-around, timed with the stream held and inputs
+                 rotated past the L2, beside the replaced int32 kernel's
+                 time and the torch._int_mm pair;
                  the SSD scan at the serve prompt, the CLI's default
                  prompt, a ragged T and a large dt;
 4. slice       — full-width BK-SDM-Tiny text-to-image, 25 DDIM steps at
@@ -95,6 +100,12 @@ REUSE_TIE_REL = 1e-3        # |delta - thr| / thr at a flipped patch: a tie
 EDIT_CAPACITY = 0.125
 EDIT_WINDOW = (4, 4, 8, 8)  # latent pixels (y0, x0, h, w) re-noised
 L2_BYTES = 50e6             # H100 L2: timed inputs rotate past it
+# The bit-slice kernel this one replaced (an int32 GEMM on the CUDA
+# cores) at the six main-path shapes, ms (PERF.md: NVIDIA H100 80GB HBM3,
+# 700 W; CUDA events over launches back to back, inputs not rotated)
+BITSLICE_INT32_MS = {"ff_geglu res64": 1.090, "ff_out res64": 0.752,
+                    "ff_geglu res32": 1.128, "ff_out res32": 0.818,
+                    "ff_geglu res16": 1.163, "ff_out res16": 1.102}
 # SSD scan kernel against the sequential recurrence, |k - p| <= tol (1 +
 # |p|): the JAX package's bound for its chunked kernel against its oracle
 SSD_TOL = 2e-4
@@ -435,12 +446,107 @@ def patch_delta_rows(torch, g, kernel, plain_fn) -> dict:
     return rows
 
 
-@phase("kernels")
-def kernels_phase(torch):
-    from repro_torch.core.precision import PrecisionPolicy, spot_cas
+def _int_mm_pair(torch, sets):
+    """The two int8 products alone, ``hi @ w`` and ``(lo * prec) @ w``,
+    through ``torch._int_mm`` (cuBLASLt) on int8 copies of ``sets``, the
+    copies rotated past the L2 too: a yardstick of the card's int8 GEMM,
+    two library calls and no shift-add.  (ms, None), or (None, why) where
+    ``_int_mm`` refuses the shape."""
+    per_set = sum(x.numel() for x in sets[0][:3])       # int8 bytes
+    pairs = []
+    for i in range(max(1, math.ceil(2 * L2_BYTES / per_set))):
+        hi, lo, w, prec = sets[i % len(sets)]
+        pairs.append((hi.to(torch.int8), (lo * prec).to(torch.int8),
+                      w.to(torch.int8)))
+
+    def pair(h, l, w):
+        return torch._int_mm(h, w), torch._int_mm(l, w)
+    try:
+        pair(*pairs[0])
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, str(e).strip().splitlines()[0][:160]
+    return rotating_ms(torch, pair, pairs, reps=30), None
+
+
+def bitslice_rows(torch, g) -> dict:
+    """The DBSC bit-slice matmul at the six main-path shapes (ff_geglu and
+    ff_out at res 64, 32 and 16; M = 2 * res^2 rows, CFG-fused) and a
+    ragged case, bit-exact against the plain version under both
+    dataflows, timed with the stream held and the inputs rotated past the
+    L2, as the main path finds them.  Beside each row it prints the
+    replaced int32 kernel's time at the same shape (``BITSLICE_INT32_MS``,
+    a constant, so not in the JSON row), the ``torch._int_mm`` pair and
+    the input_stationary order's time.  The bound counts what this run's
+    first input set needs: the lo plane and its products only on INT12
+    rows, since ``lo * prec`` is zero on the others."""
     from repro_torch.kernels.bitslice_matmul.kernel import (
         bitslice_matmul_kernel)
     from repro_torch.kernels.bitslice_matmul.ref import bitslice_matmul_ref
+    rows = {}
+    cases = []
+    for res, c in ((64, 320), (32, 640), (16, 1280)):
+        t2 = 2 * res * res
+        cases.append((f"ff_geglu res{res}", t2, c, 8 * c, res == 64))
+        cases.append((f"ff_out res{res}", t2, 4 * c, c, False))
+    cases.append(("ragged", 100, 77, 50, False))
+    for label, m, kk, n, main in cases:
+        sets = []
+        for _ in range(max(1, math.ceil(
+                2 * L2_BYTES / (4 * (2 * m * kk + kk * n + m))))):
+            hi, lo = (torch.randint(0, 64, (m, kk), generator=g,
+                                    device="cuda", dtype=torch.int32)
+                      for _ in range(2))
+            w = torch.randint(-128, 128, (kk, n), generator=g,
+                              device="cuda", dtype=torch.int32)
+            prec = torch.randint(0, 2, (m, 1), generator=g, device="cuda",
+                                 dtype=torch.int32)
+            sets.append((hi, lo, w, prec))
+        hi, lo, w, prec = sets[0]
+        plain = bitslice_matmul_ref(hi, lo, w, prec)
+        for dataflow in ("weight_stationary", "input_stationary"):
+            out = bitslice_matmul_kernel(hi, lo, w, prec, dataflow)
+            require(torch.equal(out, plain),
+                    f"bitslice_matmul {label} {dataflow}: not bit-exact")
+        ms = rotating_ms(torch, bitslice_matmul_kernel, sets, reps=30)
+        is_ms = rotating_ms(torch, lambda *a: bitslice_matmul_kernel(
+            *a, "input_stationary"), sets, reps=30)
+        plain_ms = rotating_ms(torch, bitslice_matmul_ref, sets, reps=5)
+        pair_ms, why = _int_mm_pair(torch, sets)
+        int12 = prec.sum().item()
+        ops = 2.0 * kk * n * (m + int12)         # hi rows + kept lo rows
+        nbytes = 4.0 * ((m + int12) * kk + kk * n + m + m * n)
+        kernel_row(rows, "bitslice_matmul", label, [m, kk, n], ms, plain_ms,
+                   bound(nbytes, ops, INT8_OPS), 0.0, main)
+        old = BITSLICE_INT32_MS.get(label)
+        print(f"  bitslice_matmul {label}: bit-exact under both dataflows; "
+              f"int32 kernel {old if old else 'null'} ms"
+              + (f" (now {ms / old:.3f} of it)" if old else "")
+              + "; _int_mm pair "
+              + (f"{pair_ms:.4f} ms" if why is None else f"null ({why})")
+              + f"; input_stationary {is_ms:.4f} ms", flush=True)
+        if main:
+            rows["bitslice_matmul"]["int_mm_pair_ms"] = pair_ms
+        del sets, hi, lo, w, prec, plain, out
+    # int32 wrap-around: 63 * 127 * 5120 << 6 passes 2**31
+    hi = torch.full((64, 5120), 63, dtype=torch.int32, device="cuda")
+    w = torch.full((5120, 64), 127, dtype=torch.int32, device="cuda")
+    prec = torch.ones((64, 1), dtype=torch.int32, device="cuda")
+    plain = bitslice_matmul_ref(hi, hi, w, prec)
+    expect = (63 * 127 * 5120 * 65 + 2 ** 31) % 2 ** 32 - 2 ** 31
+    for dataflow in ("weight_stationary", "input_stationary"):
+        out = bitslice_matmul_kernel(hi, hi, w, prec, dataflow)
+        require(torch.equal(out, plain) and int(out[0, 0]) == expect,
+                f"bitslice_matmul overflow {dataflow}: {int(out[0, 0])} "
+                f"!= {expect}")
+    print(f"  bitslice_matmul int32 wrap-around case equal under both "
+          f"dataflows ({int(out[0, 0])})")
+    return rows
+
+
+@phase("kernels")
+def kernels_phase(torch):
+    from repro_torch.core.precision import PrecisionPolicy, spot_cas
     from repro_torch.kernels.cross_attention_tips.kernel import (
         cross_attention_tips_kernel)
     from repro_torch.kernels.cross_attention_tips.ref import (
@@ -493,44 +599,7 @@ def kernels_phase(torch):
                    plain_ms, bound(nbytes, ops, FP32_FLOPS),
                    max(err_o, err_c), main)
 
-    # -- DBSC bit-slice matmul: (label, M, K, N, main) --------------------
-    cases = []
-    for res, c in ((64, 320), (32, 640), (16, 1280)):
-        t2 = 2 * res * res
-        cases.append((f"ff_geglu res{res}", t2, c, 8 * c, res == 64))
-        cases.append((f"ff_out res{res}", t2, 4 * c, c, False))
-    cases.append(("ragged", 100, 77, 50, False))
-    for label, m, kk, n, main in cases:
-        hi = torch.randint(0, 64, (m, kk), generator=g, device=dev,
-                           dtype=torch.int32)
-        lo = torch.randint(0, 64, (m, kk), generator=g, device=dev,
-                           dtype=torch.int32)
-        w = torch.randint(-128, 128, (kk, n), generator=g, device=dev,
-                          dtype=torch.int32)
-        prec = torch.randint(0, 2, (m, 1), generator=g, device=dev,
-                             dtype=torch.int32)
-        plain = bitslice_matmul_ref(hi, lo, w, prec)
-        for dataflow in ("weight_stationary", "input_stationary"):
-            out = bitslice_matmul_kernel(hi, lo, w, prec, dataflow)
-            require(torch.equal(out, plain),
-                    f"bitslice_matmul {label} {dataflow}: not bit-exact")
-        ms = cuda_ms(bitslice_matmul_kernel, hi, lo, w, prec, reps=20)
-        plain_ms = cuda_ms(bitslice_matmul_ref, hi, lo, w, prec, reps=5)
-        ops = 2.0 * kk * n * (m + prec.sum().item())  # hi rows + kept lo rows
-        nbytes = 4.0 * (2 * m * kk + kk * n + m + m * n)
-        kernel_row(rows, "bitslice_matmul", label, [m, kk, n], ms, plain_ms,
-                   bound(nbytes, ops, INT8_OPS), 0.0, main)
-    # int32 wrap-around: 63 * 127 * 5120 << 6 passes 2**31
-    hi = torch.full((64, 5120), 63, dtype=torch.int32, device=dev)
-    w = torch.full((5120, 64), 127, dtype=torch.int32, device=dev)
-    prec = torch.ones((64, 1), dtype=torch.int32, device=dev)
-    out = bitslice_matmul_kernel(hi, hi, w, prec)
-    plain = bitslice_matmul_ref(hi, hi, w, prec)
-    expect = (63 * 127 * 5120 * 65 + 2 ** 31) % 2 ** 32 - 2 ** 31
-    require(torch.equal(out, plain) and int(out[0, 0]) == expect,
-            f"bitslice_matmul overflow: {int(out[0, 0])} != {expect}")
-    print(f"  bitslice_matmul int32 wrap-around case equal "
-          f"({int(out[0, 0])})")
+    rows.update(bitslice_rows(torch, g))
     rows.update(patch_delta_rows(
         torch, torch.Generator(device="cuda").manual_seed(4321),
         patch_delta_kernel, patch_delta_ref))

@@ -10,6 +10,9 @@ from repro_torch.kernels.runtime import launch_counter
 
 LAUNCHES = launch_counter("bitslice_matmul")
 DATAFLOWS = {"weight_stationary": 0, "input_stationary": 1}
+# The kernel accumulates each plane's products in s32 on the tensor cores:
+# |plane * w| <= 63 * 128, so K up to this keeps both sums below 2**31.
+K_MAX = (2 ** 31 - 1) // (63 * 128)
 
 
 def _check(name, x, shape):
@@ -30,7 +33,15 @@ def bitslice_matmul_kernel(x_hi: torch.Tensor, x_lo: torch.Tensor,
                            dataflow: str = "weight_stationary"
                            ) -> torch.Tensor:
     """int32 planes (M, K), weights (K, N), row flags (M, 1) on the card ->
-    (M, N) int32.  Launches the CUDA kernel or raises."""
+    (M, N) int32.  Launches the CUDA kernel or raises.
+
+    Domain: ``x_hi`` and ``x_lo`` in [0, 63] (``quant.bitslice_split`` of
+    an unsigned INT12 code), ``w`` in [-128, 127] (``quant.quantize_weight``)
+    and ``prec`` in {0, 1}: the TPU kernel's contract and what ``ops.py``
+    feeds.  The kernel narrows every operand to int8 for the tensor cores,
+    so within the domain it equals ``bitslice_matmul_ref`` bit for bit;
+    outside it the result is not defined.  K above ``K_MAX`` raises.
+    """
     if dataflow not in DATAFLOWS:
         raise ValueError(f"bitslice_matmul: dataflow={dataflow!r}, "
                          f"expected one of {tuple(DATAFLOWS)}")
@@ -40,6 +51,9 @@ def bitslice_matmul_kernel(x_hi: torch.Tensor, x_lo: torch.Tensor,
     _check("x_lo", x_lo, (m, k))
     _check("w", w, (k, n))
     _check("prec", prec, (m, 1))
+    if k > K_MAX:
+        raise ValueError(f"bitslice_matmul: K={k} exceeds {K_MAX}, past "
+                         f"which an s32 accumulator can overflow")
     lib = build.library()
     out = torch.empty((m, n), dtype=torch.int32, device=x_hi.device)
     stream = torch.cuda.current_stream(x_hi.device).cuda_stream

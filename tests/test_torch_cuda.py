@@ -3,13 +3,14 @@ the card.  Imports no JAX, so it runs where the port runs:
 
     PYTHONPATH=src python -m pytest -q -m requires_cuda tests/test_torch_cuda.py
 
-Without a CUDA device every test skips.  Tolerances: PSSA counters and
-DBSC integers exact (these shapes hold no score within an ulp of the
-threshold); attention outputs rtol 1e-4, atol 1e-5 and CAS atol 1e-6
-(float32 in another summation order); the patch delta and the PSXU bitmap
-bit for bit (a max and a compare need no order), NaN where NaN; the SSD
-scan rtol/atol 2e-4 against the sequential recurrence (the JAX package's
-bound for its chunked kernel against its oracle).
+Without a CUDA device every test skips.  Tolerances: PSSA counters
+exact (these shapes hold no score within an ulp of the threshold); DBSC
+integers exact (the kernel narrows its operands to int8, which is exact
+on the domain it is fed); attention outputs rtol 1e-4, atol 1e-5 and
+CAS atol 1e-6 (float32 in another summation order); the patch delta and
+the PSXU bitmap bit for bit (a max and a compare need no order), NaN
+where NaN; the SSD scan rtol/atol 2e-4 against the sequential recurrence
+(the JAX package's bound for its chunked kernel against its oracle).
 """
 import dataclasses
 
@@ -19,7 +20,8 @@ import torch
 from repro_torch.configs import bk_sdm
 from repro_torch.diffusion.engine import DiffusionEngine
 from repro_torch.kernels import runtime
-from repro_torch.kernels.bitslice_matmul.kernel import bitslice_matmul_kernel
+from repro_torch.kernels.bitslice_matmul.kernel import (
+    K_MAX, bitslice_matmul_kernel)
 from repro_torch.kernels.bitslice_matmul.ref import bitslice_matmul_ref
 from repro_torch.kernels.cross_attention_tips.kernel import (
     cross_attention_tips_kernel)
@@ -122,19 +124,64 @@ def test_cross_kernel_matches_plain(cuda, bh, tq, tk, d):
     torch.testing.assert_close(cas, cas_p, rtol=0, atol=1e-6)
 
 
+# (M, K, N, operands, prec): K = 77 and 100 are not multiples of the
+# kernel's 32-deep slab, and 77 leaves the rows without 16-byte alignment;
+# the res-16 shapes split K over blocks; the corners sit at the domain's
+# ends at K = 5120, where (hi @ w) << 6 wraps; the last case must raise.
+BITSLICE_CASES = {
+    "ragged K=77": (100, 77, 50, "random", "mixed"),
+    "ragged K=100": (130, 100, 132, "random", "mixed"),
+    "unaligned planes": (96, 64, 64, "offset", "mixed"),
+    "res16 ff_geglu": (512, 1280, 10240, "random", "mixed"),
+    "res16 ff_out": (512, 5120, 1280, "random", "mixed"),
+    "corner w=-128": (64, 5120, 64, -128, "ones"),
+    "corner w=127": (64, 5120, 64, 127, "ones"),
+    "prec all 0": (256, 320, 256, "random", "zeros"),
+    "prec all 1": (256, 320, 256, "random", "ones"),
+    "K above the limit": (2, K_MAX + 1, 8, "random", "ones"),
+}
+
+
+def _bitslice_inputs(dev, m, k, n, operands, rows):
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    if operands in ("random", "offset"):
+        hi, lo = (torch.randint(0, 64, (m, k), generator=g, device=dev,
+                                dtype=torch.int32) for _ in range(2))
+        w = torch.randint(-128, 128, (k, n), generator=g, device=dev,
+                          dtype=torch.int32)
+    else:
+        hi = torch.full((m, k), 63, dtype=torch.int32, device=dev)
+        lo = hi.clone()
+        w = torch.full((k, n), operands, dtype=torch.int32, device=dev)
+    if operands == "offset":     # contiguous, but 4 bytes past 16-aligned
+        hi, lo = (torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                             x.reshape(-1)])[1:].view(m, k) for x in (hi, lo))
+        assert hi.data_ptr() % 16 == 4
+    if rows == "mixed":
+        prec = torch.randint(0, 2, (m, 1), generator=g, device=dev,
+                             dtype=torch.int32)
+    else:
+        prec = torch.full((m, 1), int(rows == "ones"), dtype=torch.int32,
+                          device=dev)
+    return hi, lo, w, prec
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dataflow", ["weight_stationary",
                                       "input_stationary"])
-def test_bitslice_kernel_matches_plain(cuda, dataflow):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    hi, lo = (torch.randint(0, 64, (100, 77), generator=g, device=cuda,
-                            dtype=torch.int32) for _ in range(2))
-    w = torch.randint(-128, 128, (77, 50), generator=g, device=cuda,
-                      dtype=torch.int32)
-    prec = torch.randint(0, 2, (100, 1), generator=g, device=cuda,
-                         dtype=torch.int32)
-    assert torch.equal(bitslice_matmul_kernel(hi, lo, w, prec, dataflow),
-                       bitslice_matmul_ref(hi, lo, w, prec))
+@pytest.mark.parametrize("case", list(BITSLICE_CASES))
+def test_bitslice_kernel_matches_plain(cuda, case, dataflow):
+    m, k, n, operands, rows = BITSLICE_CASES[case]
+    hi, lo, w, prec = _bitslice_inputs(cuda, m, k, n, operands, rows)
+    if k > K_MAX:
+        with pytest.raises(ValueError, match="exceeds"):
+            bitslice_matmul_kernel(hi, lo, w, prec, dataflow)
+        return
+    out = bitslice_matmul_kernel(hi, lo, w, prec, dataflow)
+    assert torch.equal(out, bitslice_matmul_ref(hi, lo, w, prec))
+    if operands in (-128, 127):   # every entry wraps past int32
+        exact = 63 * operands * k * 65
+        assert int(out[0, 0]) == (exact + 2 ** 31) % 2 ** 32 - 2 ** 31
 
 
 @pytest.mark.requires_cuda
