@@ -4,9 +4,10 @@
 #   bash chip_ab.sh build/parent                      # on the card's host
 # Runs chip_smoke.py's slice phase (full-width 25-step generate, s/image
 # and its profile) in the order parent, change, change, parent, then this
-# tree's bit-slice rows (kernel, plain and _int_mm times at the six
-# main-path shapes) on each tree's kernel.  Both trees run this tree's
-# chip_smoke.py against their own src/repro_torch, each built in place.
+# tree's PSSA rows (kernel, plain and bound at the six shapes, the checks
+# included) on each tree's kernel.  Both trees run this tree's
+# chip_smoke.py against their own src/repro_torch, each built in place; a
+# kernel without the guard band's counter reads 0 there.
 set -euo pipefail
 here=$(cd "$(dirname "$0")" && pwd)
 parent=$(cd "$1" && pwd)
@@ -18,7 +19,10 @@ c.build_kernels()'
 slice="$prelude
 c.slice_phase(torch)"
 rows="$prelude
-c.bitslice_rows(torch, torch.Generator(device='cuda').manual_seed(1))"
+import repro_torch.kernels.pssa_attention.kernel as k
+if not hasattr(k, 'band_count'):
+    k.band_count, k.band_reset = (lambda: 0), (lambda: None)
+c.pssa_rows(torch, torch.Generator(device='cuda').manual_seed(1234))"
 for who in parent change change parent; do
   if [ "$who" = parent ]; then cd "$parent"; else cd "$here"; fi
   echo "=== slice $who"
@@ -26,6 +30,6 @@ for who in parent change change parent; do
 done
 for who in parent change; do
   if [ "$who" = parent ]; then cd "$parent"; else cd "$here"; fi
-  echo "=== bit-slice rows, $who kernel"
+  echo "=== PSSA rows, $who kernel"
   python3 -c "$rows" "$here"
 done

@@ -11,7 +11,11 @@ no result line):
 3. kernels     — each hand-written kernel at every shape the main path
                  gives it (plus a ragged case) against its plain PyTorch
                  version on the card, with times, bounds and tolerances;
-                 PSSA also with gathered queries (Tq = T/8, the edit path);
+                 PSSA also with gathered queries (Tq = T/8, the edit path),
+                 timed with the stream held and inputs rotated past the L2,
+                 its bound on the 3xTF32 tensor-core basis beside the fp32
+                 one, the replaced fp32 kernel's time and the count of
+                 scores its guard band recomputed;
                  the bit-slice matmul bit-exact under both dataflows at
                  its six shapes, a ragged K = 77 and the int32
                  wrap-around, timed with the stream held and inputs
@@ -74,6 +78,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM data-sheet peaks
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12          # fp32 outside the tensor cores
+TF32_FLOPS = 495e12         # TF32 tensor cores, dense
 INT8_OPS = 1979e12          # int8 tensor cores, dense
 
 THRESHOLD = 1.0 / 8192.0
@@ -106,6 +111,13 @@ L2_BYTES = 50e6             # H100 L2: timed inputs rotate past it
 BITSLICE_INT32_MS = {"ff_geglu res64": 1.090, "ff_out res64": 0.752,
                     "ff_geglu res32": 1.128, "ff_out res32": 0.818,
                     "ff_geglu res16": 1.163, "ff_out res16": 1.102}
+# The PSSA kernel this one replaced (fp32 CUDA cores) at the six shapes of
+# pssa_rows, ms (PERF.md: NVIDIA H100 80GB HBM3, 700 W; CUDA events over
+# launches back to back, inputs not rotated; the gathered and ragged rows
+# from later runs of the same kernel)
+PSSA_FP32_MS = {"res64 down0.0 cond-only": 2.279, "res64 up3.*": 4.364,
+                "res32": 0.493, "res16": 0.246, "ragged T=48": 0.0515,
+                "res64 gathered Tq=T/8": 0.7981}
 # SSD scan kernel against the sequential recurrence, |k - p| <= tol (1 +
 # |p|): the JAX package's bound for its chunked kernel against its oracle
 SSD_TOL = 2e-4
@@ -330,13 +342,14 @@ def check_pssa(torch, label, q, k, patch, kern, plain, exact: bool):
 
 
 def kernel_row(rows, name, label, shape, ms, plain_ms, b, err, main,
-               library_ms=None):
-    """Print one timed shape; keep it as the kernel's row if ``main``."""
+               library_ms=None, note=""):
+    """Print one timed shape (``note`` appended to the printed line only);
+    keep it as the kernel's row if ``main``."""
     lib = "null" if library_ms is None else f"{library_ms:.4f}"
     print(f"kernel {name} {label} shape={shape} kernel_ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} bound_ms={b[0]:.4f} "
-          f"bound_by={b[1]} library_ms={lib} max_abs_err={err:.3e}",
-          flush=True)
+          f"bound_by={b[1]} library_ms={lib} max_abs_err={err:.3e}"
+          + (f" {note}" if note else ""), flush=True)
     if main:
         rows[name] = {"name": name, "route": "cuda",
                       "source": SOURCES[name],
@@ -348,12 +361,19 @@ def kernel_row(rows, name, label, shape, ms, plain_ms, b, err, main,
 
 def pssa_rows(torch, g) -> dict:
     """PSSA kernel against plain at every main-path shape, the gathered
-    queries of the edit path included (Tq = T/8 against Tk = T)."""
+    queries of the edit path included (Tq = T/8 against Tk = T), timed
+    with the stream held and the inputs rotated past the L2.
+
+    The bound counts 2*BH*Tq*Tk*d + 2*nnz*d operations, each as three TF32
+    tensor-core products (the kernel's 3xTF32 scheme) at TF32_FLOPS.  The
+    printed line also gives the fp32-core bound of the same operations and
+    the replaced fp32 kernel's time (``PSSA_FP32_MS``, a constant, so not in
+    the JSON row), and how many scores the kernel's guard band recomputed
+    in fp32 in the checked launch."""
     from repro_torch.kernels.pssa_attention.kernel import (
-        pssa_attention_kernel)
+        band_count, band_reset, pssa_attention_kernel)
     from repro_torch.kernels.pssa_attention.ref import (
         pssa_attention_stats_ref)
-    from repro_torch.kernels.runtime import cuda_ms
     rows = {}
     # (label, BH, Tq, Tk, d, patch, exact, main)
     for label, bh, tq, tk, d, patch, exact, main in [
@@ -367,21 +387,36 @@ def pssa_rows(torch, g) -> dict:
         q = torch.randn((bh, tq, d), generator=g, device="cuda")
         k, v = (torch.randn((bh, tk, d), generator=g, device="cuda")
                 for _ in range(2))
+        # the checked inputs come from ``g`` as before; the copies that the
+        # timing rotates through come from a generator of their own
+        rot = torch.Generator(device="cuda").manual_seed(tq + tk + d)
+        sets = [(q, k, v)] + [
+            tuple(torch.randn(x.shape, generator=rot, device="cuda")
+                  for x in (q, k, v))
+            for _ in range(1, math.ceil(
+                2 * L2_BYTES / (4 * (bh * tq * d + 2 * bh * tk * d))))]
+        band_reset()
         kern = pssa_attention_kernel(q, k, v, THRESHOLD, patch)
         torch.cuda.synchronize()
+        band = band_count()
         plain = pssa_attention_stats_ref(q, k, v, THRESHOLD, patch)
         err = check_pssa(torch, f"pssa_attention {label}", q, k, patch,
                          kern, plain, exact)
-        ms = cuda_ms(pssa_attention_kernel, q, k, v, THRESHOLD, patch,
-                     reps=10)
-        plain_ms = cuda_ms(pssa_attention_stats_ref, q, k, v, THRESHOLD,
-                           patch, reps=3)
+        ms = rotating_ms(torch, lambda *a: pssa_attention_kernel(
+            *a, THRESHOLD, patch), sets, reps=10)
+        plain_ms = rotating_ms(torch, lambda *a: pssa_attention_stats_ref(
+            *a, THRESHOLD, patch), sets, reps=3)
         nnz = plain[1].sum().item()
         ops = 2.0 * bh * tq * tk * d + 2.0 * nnz * d  # q k^T + kept p @ v
         nbytes = 4.0 * (2 * bh * tq * d + 2 * bh * tk * d + 2 * bh * tq)
+        fp32 = bound(nbytes, ops, FP32_FLOPS)
+        old = PSSA_FP32_MS[label]
         kernel_row(rows, "pssa_attention", label, [bh, tq, tk, d, patch],
-                   ms, plain_ms, bound(nbytes, ops, FP32_FLOPS), err, main)
-        del q, k, v, kern, plain
+                   ms, plain_ms, bound(nbytes, 3.0 * ops, TF32_FLOPS), err,
+                   main, note=f"fp32_core_bound_ms={fp32[0]:.4f} "
+                              f"fp32_kernel_ms={old} ({ms / old:.3f} of it) "
+                              f"band_recomputed={band} of {bh * tq * tk}")
+        del sets, q, k, v, kern, plain
     return rows
 
 

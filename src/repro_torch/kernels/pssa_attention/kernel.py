@@ -3,6 +3,8 @@
 ``repro/kernels/pssa_attention/kernel.py: pssa_attention_kernel``)."""
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build
@@ -55,3 +57,24 @@ def pssa_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(err, "pssa_attention")
     LAUNCHES.bump()
     return out, nnz, xor_ones
+
+
+def _band_fn(name: str):
+    """The library's guard-band counter functions, bound on first use."""
+    fn = getattr(build.library(), name)
+    fn.argtypes = [ctypes.c_void_p] if name.endswith("count") else []
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def band_count() -> int:
+    """Scores the kernel's guard band recomputed in fp32 since the last
+    ``band_reset()``, summed over launches; read after they finished."""
+    n = ctypes.c_ulonglong(0)
+    build.check(_band_fn("pssa_attention_band_count")(ctypes.addressof(n)),
+                "pssa_attention")
+    return n.value
+
+
+def band_reset() -> None:
+    build.check(_band_fn("pssa_attention_band_reset")(), "pssa_attention")

@@ -49,22 +49,37 @@ def cuda():
     return torch.device("cuda")
 
 
+# (BH, T, d, patch, q scale, threshold): d = 13 pads to 16 columns; d = 80
+# at T = 1024 is res 32's width; q x 6 makes the rows peaky, so most keys
+# are pruned; threshold 0 keeps every key.
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("bh,t,d,patch", [(4, 256, 40, 16), (2, 48, 8, 16),
-                                          (2, 128, 160, 64)])
-def test_pssa_kernel_matches_plain(cuda, bh, t, d, patch):
+@pytest.mark.parametrize("bh,t,d,patch,qscale,thr", [
+    (4, 256, 40, 16, 1.0, THR), (2, 48, 8, 16, 1.0, THR),
+    (2, 128, 160, 64, 1.0, THR), (2, 48, 13, 16, 1.0, THR),
+    (2, 1024, 80, 64, 1.0, THR), (4, 256, 40, 16, 6.0, THR),
+    (2, 128, 40, 64, 1.0, 0.0)])
+def test_pssa_kernel_matches_plain(cuda, bh, t, d, patch, qscale, thr):
     g = torch.Generator(device=cuda).manual_seed(t + d)
     q, k, v = (torch.randn((bh, t, d), generator=g, device=cuda)
                for _ in range(3))
-    out, nnz, xr = pssa_attention_kernel(q, k, v, THR, patch)
-    out_p, nnz_p, xr_p = pssa_attention_stats_ref(q, k, v, THR, patch)
+    q *= qscale
+    out, nnz, xr = pssa_attention_kernel(q, k, v, thr, patch)
+    out_p, nnz_p, xr_p = pssa_attention_stats_ref(q, k, v, thr, patch)
     assert torch.equal(nnz, nnz_p) and torch.equal(xr, xr_p)
     torch.testing.assert_close(out, out_p, rtol=1e-4, atol=1e-5)
+    if thr == 0.0:
+        assert bool((nnz == t).all())
+    if qscale > 1.0:
+        assert nnz.float().mean().item() < t / 4
 
 
+# (BH, Tq, Tk, d, patch): Tq = 100 is not a multiple of the kernel's row
+# block; Tq = T/8 at d = 40 is the edit path's gathered res-64 width.
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("bh,tq,tk,d,patch", [(4, 32, 256, 40, 16),
-                                              (2, 128, 1024, 80, 64)])
+                                              (2, 128, 1024, 80, 64),
+                                              (2, 100, 256, 40, 16),
+                                              (4, 128, 1024, 40, 64)])
 def test_pssa_kernel_gathered_queries_match_plain(cuda, bh, tq, tk, d,
                                                   patch):
     g = torch.Generator(device=cuda).manual_seed(tq + tk)
