@@ -22,7 +22,11 @@ no result line):
                  rotated past the L2, beside the replaced int32 kernel's
                  time and the torch._int_mm pair;
                  the SSD scan at the serve prompt, the CLI's default
-                 prompt, a ragged T and a large dt;
+                 prompt, a ragged T, an odd T (chunk 1) and a large dt,
+                 its bound on the
+                 3xTF32 basis (C B^T once per batch row) beside the fp32
+                 one and the per-head count, the replaced kernel's
+                 time and the chunked torch route's;
 4. slice       — full-width BK-SDM-Tiny text-to-image, 25 DDIM steps at
                  guidance 7.5, through ``DiffusionEngine.generate`` on the
                  kernel route; launch counters must read 225/225/450;
@@ -121,6 +125,10 @@ PSSA_FP32_MS = {"res64 down0.0 cond-only": 2.279, "res64 up3.*": 4.364,
 # SSD scan kernel against the sequential recurrence, |k - p| <= tol (1 +
 # |p|): the JAX package's bound for its chunked kernel against its oracle
 SSD_TOL = 2e-4
+# The SSD scan kernel this one replaced (one block per row walking its
+# chunks, fp32 CUDA cores) at the serve row, ms (PERF.md: NVIDIA H100 80GB
+# HBM3, 700 W; inputs rotated past the L2)
+SSD_ROWWISE_MS = {"serve prefill T=4096": 5.118}
 # serve: mamba2-130m, batch 4, a 4096-token prompt (chunk 128), 64 tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4096, 64
 # prefill logits, kernel route against the chunked route (which rounds its
@@ -646,15 +654,25 @@ def kernels_phase(torch):
 def ssd_scan_rows(torch, g) -> dict:
     """The SSD scan kernel against its plain version (the sequential
     recurrence, on the TPU kernel's folded contract: B and C copied per
-    head) at the serve prompt, the CLI's default prompt, a ragged T and a
-    large dt whose |dA| sums past 88 inside a chunk.  The kernel reads the
+    head) at the serve prompt, the CLI's default prompt, a ragged T, an
+    odd T (chunk 1; the kernel still runs 128-step tiles) and a large dt
+    whose |dA| sums past 88 inside a chunk.  The kernel reads the
     model's per-batch B and C in place (``heads=24``), as the main path
-    gives them.  Inputs as in tests/test_ssd_kernel.py."""
+    gives them.  Inputs as in tests/test_ssd_kernel.py.
+
+    Beside each row: the bound on two counts of the work (C B^T once per
+    batch row, which all heads share, or once per head as the replaced
+    kernel's bound counted it), each on the 3xTF32 tensor-core basis and
+    on the fp32 cores; and, for information only, the port's chunked
+    torch route (``models.ssm.ssd_scan``: many cuBLAS calls on
+    bf16-rounded operands, not one call of the same function) on the same
+    inputs."""
     import torch.nn.functional as F
     from repro_torch.kernels.runtime import cuda_ms
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
     from repro_torch.kernels.ssd_scan.ops import pick_chunk
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models.ssm import ssd_scan as chunked_route
     rows = {}
     p, n, heads = 64, 128, 24
     # (label, batch, T, dt scale, main)
@@ -662,6 +680,7 @@ def ssd_scan_rows(torch, g) -> dict:
             ("serve prefill T=4096", 4, 4096, 1.0, True),
             ("CLI default prompt T=32", 4, 32, 1.0, False),
             ("ragged T=4000", 4, 4000, 1.0, False),
+            ("odd prompt T=4095", 4, 4095, 1.0, False),
             ("large dt T=512", 1, 512, 12.0, False)]:
         bh, chunk = b * heads, pick_chunk(t, 128)
         set_bytes = 4 * (bh * t * p + bh * t + 2 * b * t * n)
@@ -695,16 +714,44 @@ def ssd_scan_rows(torch, g) -> dict:
             *a, chunk=chunk, heads=heads), sets, reps=10, warmup=2)
         plain_ms = cuda_ms(ssd_scan_ref, x, dA, Bh, Ch, chunk, reps=2,
                            warmup=1)
+        # the chunked route in the model's layout: x / dt with dt = -dA and
+        # A = -1, so that its x * dt and dt * A give back x and dA.  It
+        # keeps a (b, h, p, n) state per chunk, three times over: at chunk
+        # 1 and T 4095 some 40 GB, so it is not timed there.
+        dt = -dA
+        xm = (x / dt[..., None]).reshape(b, heads, t, p).movedim(1, 2)
+        dtm = dt.reshape(b, heads, t).movedim(1, 2)
+        neg = -torch.ones(heads, device="cuda")
+        route = "not timed (chunk 1)"
+        if chunk > 1:
+            route_ms = cuda_ms(chunked_route, xm, dtm, neg, B, C, chunk,
+                               reps=3, warmup=1)
+            route = f"{route_ms:.4f}"
         # per chunk of l steps: C B^T and ((C B^T) o L) @ x on the causal
         # half only (l (l + 1) / 2 pairs of 2n and 2p flops; L is zero
-        # above the diagonal), C @ state^T and x^T @ B (2pn each per step);
-        # B and C read once per batch row, in place
-        ops = 1.0 * bh * t * ((chunk + 1) * (n + p) + 4 * p * n)
+        # above the diagonal), C @ state^T and x^T @ B (2pn each per step).
+        # C B^T is the same for the heads of a batch row: the function
+        # needs it once per batch row (the replaced kernel's bound counted
+        # it once per head).
+        # B and C read once per batch row, in place.
+        ops = (1.0 * b * t * (chunk + 1) * n
+               + 1.0 * bh * t * ((chunk + 1) * p + 4 * p * n))
+        ops_head = 1.0 * bh * t * ((chunk + 1) * (n + p) + 4 * p * n)
         nbytes = 4.0 * (2 * bh * t * p + bh * t + 2 * b * t * n
                         + bh * p * n)
+        tf32 = bound(nbytes, 3 * ops, TF32_FLOPS)
+        old = SSD_ROWWISE_MS.get(label)
+        note = (f"bound_ms 3xTF32/fp32: shared C B^T "
+                f"{3 * ops / TF32_FLOPS * 1e3:.4f}/"
+                f"{ops / FP32_FLOPS * 1e3:.4f} ({ops / 1e9:.2f} GFLOP), "
+                f"per head {3 * ops_head / TF32_FLOPS * 1e3:.4f}/"
+                f"{ops_head / FP32_FLOPS * 1e3:.4f} ({ops_head / 1e9:.2f} "
+                f"GFLOP); bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f}; "
+                f"chunked torch route {route} (informational)"
+                + (f"; replaced row-wise kernel {old}" if old else ""))
         kernel_row(rows, "ssd_scan", label, [bh, t, p, n, chunk, heads], ms,
-                   plain_ms, bound(nbytes, ops, FP32_FLOPS), err, main)
-        del sets, x, dA, B, C, y, s, Bh, Ch, y_p, s_p
+                   plain_ms, tf32, err, main, note=note)
+        del sets, x, dA, B, C, y, s, Bh, Ch, y_p, s_p, xm, dtm
     return rows
 
 

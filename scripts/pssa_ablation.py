@@ -7,23 +7,19 @@ Builds variants of ``src/repro_torch/csrc/pssa_attention.cu``, each with
 one part of the kernel removed by a text substitution, and times each at the
 main path's largest shape, (BH, T, d) = (16, 4096, 40), with the inputs
 rotated past the L2 (``chip_smoke.rotating_ms``), in the order listed and
-then reversed.  The variants compute wrong results by design: only their
-times are read.  Needs one CUDA card and nvcc; prints the card's name and
-power limit first.
+then reversed; a variant's time is the mean of the two
+(``scripts/kernel_ablation.py``).  The variants compute wrong results by
+design: only their times are read.  Needs one CUDA card and nvcc; prints the
+card's name and power limit first.
 """
 from __future__ import annotations
 
-import argparse
-import ctypes
 import math
-import os
-import pathlib
-import subprocess
 import sys
-import tempfile
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
-SRC = ROOT / "src" / "repro_torch" / "csrc" / "pssa_attention.cu"
+import kernel_ablation as ka
+
+SRC = ka.ROOT / "src" / "repro_torch" / "csrc" / "pssa_attention.cu"
 SHAPE = (16, 4096, 4096, 40, 64)            # BH, Tq, Tk, d, patch
 DISPATCH = ("  PSSA_CASE(1) PSSA_CASE(2) PSSA_CASE(3) PSSA_CASE(4) "
             "PSSA_CASE(5)\n  PSSA_CASE(6) PSSA_CASE(8) PSSA_CASE(10) "
@@ -74,61 +70,9 @@ VARIANTS = {
 }
 
 
-def smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
 
-
-def build(tmp: pathlib.Path) -> dict:
-    """One shared library per variant, only the d = 40 instantiation."""
-    from repro_torch.kernels import build as kbuild
-    src = SRC.read_text()
-    if DISPATCH not in src:
-        raise SystemExit("pssa_ablation: the kernel's dispatch list changed")
-    procs = {}
-    for name, (_, subs) in VARIANTS.items():
-        text = src.replace(DISPATCH, "  PSSA_CASE(5)")
-        for old, new in subs:
-            if old not in text:
-                raise SystemExit(f"pssa_ablation: {name}: the kernel no "
-                                 f"longer has {old.strip()[:60]!r}")
-            text = text.replace(old, new)
-        cu = tmp / f"{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [kbuild._nvcc(), *kbuild.ARCH_FLAGS, *kbuild.NVCC_FLAGS, "-shared",
-             "-Xptxas", "-v", str(cu), "-o", str(tmp / f"{name}.so")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"pssa_ablation: {name} does not build:\n{out}")
-        regs = [line.split("Used")[1].split(",")[0].strip()
-                for line in out.splitlines() if "Used" in line]
-        print(f"{name}: removes {VARIANTS[name][0]}; {', '.join(regs)}",
-              flush=True)
-        lib = ctypes.CDLL(str(tmp / f"{name}.so"))
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.launch_pssa_attention.argtypes = [P, P, P, P, P, P, I, I, I, I,
-                                              I, I, F, F, P]
-        lib.launch_pssa_attention.restype = I
-        libs[name] = lib
-    return libs
-
-
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--reps", type=int, default=10)
-    args = ap.parse_args()
-    import torch
-    if not torch.cuda.is_available():
-        print("pssa_ablation: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
-    import chip_smoke
-    print(smi(), flush=True)
+def setup(torch, chip_smoke):
+    """Input sets at the main path's largest shape, and a launcher."""
     bh, tq, tk, d, patch = SHAPE
     g = torch.Generator(device="cuda").manual_seed(0)
     sets = [tuple(torch.randn((bh, t, d), generator=g, device="cuda")
@@ -149,23 +93,14 @@ def main() -> int:
             if err:
                 raise RuntimeError(f"launch failed: CUDA error {err}")
         return run
-
-    with tempfile.TemporaryDirectory() as tmp:
-        libs = build(pathlib.Path(tmp))
-        times = {name: [] for name in libs}
-        for order in (list(libs), list(libs)[::-1]):
-            for name in order:
-                times[name].append(chip_smoke.rotating_ms(
-                    torch, launcher(libs[name]), sets, reps=args.reps))
-    base = sum(times["kernel"]) / 2
-    print(f"shape (BH, Tq, Tk, d, patch) = {SHAPE}, ms (two runs), "
-          f"saving against the kernel")
-    for name, ts in times.items():
-        mean = sum(ts) / 2
-        print(f"  {name:16s} {ts[0]:.4f} {ts[1]:.4f}  saves "
-              f"{base - mean:+.4f} ms ({(base - mean) / base:+.1%})")
-    return 0
+    return sets, launcher
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # only the d = 40 instantiation is built
+    sys.exit(ka.main(
+        tag="pssa_ablation", doc=__doc__, src=SRC, variants=VARIANTS,
+        names=["launch_pssa_attention"], setup=setup,
+        shape=f"(BH, Tq, Tk, d, patch) = {SHAPE}", rounds=2,
+        common=[(DISPATCH, "  PSSA_CASE(5)")],
+        labels={"pssa_attention_kernel": "pssa"}))

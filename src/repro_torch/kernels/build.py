@@ -116,9 +116,28 @@ _SIGNATURES = {
     "launch_patch_delta": [_P, _P, _P, _I, _I, _I, _P],
     # sas, packed, counts, rows, tk, patch, threshold, stream
     "launch_patch_bitmap": [_P, _P, _P, _I, _I, _I, _F, _P],
-    # x, dA, B, C, y, state, bh, t, p, n, chunk, heads, stream
-    "launch_ssd_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, dA, B, C, y, state, workspace, bh, t, p, n, chunk, heads, stream
+    "launch_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P],
 }
+# functions that return something else than a CUDA error code:
+# name -> (argtypes, restype)
+_QUERIES = {
+    # bh, t, p, n, heads -> floats of launch_ssd_scan's workspace
+    "ssd_scan_workspace_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
+}
+
+
+def bind(lib, names=None):
+    """Set the ctypes signatures of ``names`` (default: every launch and
+    query function) on a loaded library; returns it."""
+    for name in names or [*_SIGNATURES, *_QUERIES]:
+        fn = getattr(lib, name)
+        if name in _QUERIES:
+            fn.argtypes, fn.restype = _QUERIES[name]
+        else:
+            fn.argtypes, fn.restype = _SIGNATURES[name], ctypes.c_int
+    return lib
 
 
 def library():
@@ -126,11 +145,7 @@ def library():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            lib = bind(ctypes.CDLL(str(build())))
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -34,7 +34,10 @@ def ssd_scan_kernel(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     ``bh // heads``, so the model's per-batch B and C need no copy per
     head (``heads=1`` is the TPU kernel's folded contract).
     Returns (y (BH, T, p), final_state (BH, p, n)), float32.
-    Launches the CUDA kernel or raises.
+    Launches the CUDA kernel or raises.  The kernel's phases pass C B^T
+    and each tile's state through a workspace, allocated here at the size
+    the kernel's ``ssd_scan_workspace_floats`` gives: its tiles are 128
+    steps whatever ``chunk`` is, so the size does not depend on it.
     """
     bh, t, p = x.shape
     n = B.shape[-1]
@@ -52,10 +55,13 @@ def ssd_scan_kernel(x: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     lib = build.library()
     y = torch.empty((bh, t, p), dtype=torch.float32, device=x.device)
     state = torch.empty((bh, p, n), dtype=torch.float32, device=x.device)
+    ws = torch.empty(lib.ssd_scan_workspace_floats(bh, t, p, n, heads),
+                     dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.launch_ssd_scan(x.data_ptr(), dA.data_ptr(), B.data_ptr(),
                               C.data_ptr(), y.data_ptr(), state.data_ptr(),
-                              bh, t, p, n, chunk, heads, stream)
+                              ws.data_ptr(), bh, t, p, n, chunk, heads,
+                              stream)
     build.check(err, "ssd_scan")
     LAUNCHES.bump()
     return y, state

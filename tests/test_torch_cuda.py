@@ -259,12 +259,44 @@ def _ssd_inputs(cuda, bh, t, p, n, heads, dt_scale, seed):
 @pytest.mark.parametrize("bh,t,p,n,chunk,heads", [
     (16, 128, 16, 8, 32, 8), (16, 128, 16, 8, 128, 8),   # smoke model
     (4, 256, 64, 128, 128, 2), (6, 100, 16, 16, 100, 1),  # chunk % 32 != 0
-    (4, 97, 16, 8, 1, 2), (2, 256, 32, 16, 256, 1)])     # chunk 1, > 128
+    (4, 97, 16, 8, 1, 2), (2, 256, 32, 16, 256, 1),      # chunk 1, > 128
+    (24, 1024, 64, 128, 128, 24),     # the serve layout at a shorter T
+    (8, 128, 64, 128, 128, 4),        # T == chunk: one tile, no carry
+    (24, 512, 64, 128, 256, 24),      # 24 heads, chunk 256 (two tiles)
+    (8, 4000, 64, 128, 32, 4),        # many chunks, T ragged against 128
+    (96, 4095, 64, 128, 1, 24),       # serve width, odd T (chunk 1)
+    (4, 200, 13, 10, 100, 2)])        # p, n, p n not multiples of 4
 def test_ssd_scan_kernel_matches_plain(cuda, bh, t, p, n, chunk, heads):
     x, dA, B, C = _ssd_inputs(cuda, bh, t, p, n, heads, 1.0, t + p)
     y, s = ssd_scan_kernel(x, dA, B, C, chunk=chunk, heads=heads)
     y_p, s_p = ssd_scan_ref(x, dA, B.repeat_interleave(heads, 0),
                             C.repeat_interleave(heads, 0))
+    torch.testing.assert_close(y, y_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s, s_p, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("offset", ["x", "bc"])
+def test_ssd_scan_kernel_reads_unaligned_inputs(cuda, offset):
+    """x, or B and C, as contiguous views 4 bytes past a 16-byte boundary:
+    the kernel loads them 4 bytes at a time instead of 16."""
+    bh, t, p, n, heads = 8, 300, 64, 128, 4
+    ins = _ssd_inputs(cuda, bh, t, p, n, heads, 1.0, 11)
+
+    def shifted(a):
+        flat = torch.empty(a.numel() + 1, device=cuda)
+        view = flat[1:].view(a.shape)
+        view.copy_(a)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        return view
+    x, dA, B, C = ins
+    if offset == "x":
+        x = shifted(x)
+    else:
+        B, C = shifted(B), shifted(C)
+    y, s = ssd_scan_kernel(x, dA, B, C, chunk=100, heads=heads)
+    y_p, s_p = ssd_scan_ref(*ins[:2], ins[2].repeat_interleave(heads, 0),
+                            ins[3].repeat_interleave(heads, 0))
     torch.testing.assert_close(y, y_p, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(s, s_p, rtol=2e-4, atol=2e-4)
 
