@@ -21,6 +21,12 @@ no result line):
                  wrap-around, timed with the stream held and inputs
                  rotated past the L2, beside the replaced int32 kernel's
                  time and the torch._int_mm pair;
+                 TIPS cross-attention at res 64/32/16 and a ragged Tq,
+                 timed with the stream held and inputs rotated past the
+                 L2, its bound on the 3xTF32 basis beside the fp32 one,
+                 the replaced fp32 kernel's time and SDPA's for the
+                 output alone; the op on the UNet's head-split views
+                 runs no copy and equals the 3-D call;
                  the SSD scan at the serve prompt, the CLI's default
                  prompt, a ragged T, an odd T (chunk 1) and a large dt,
                  its bound on the
@@ -122,6 +128,12 @@ BITSLICE_INT32_MS = {"ff_geglu res64": 1.090, "ff_out res64": 0.752,
 PSSA_FP32_MS = {"res64 down0.0 cond-only": 2.279, "res64 up3.*": 4.364,
                 "res32": 0.493, "res16": 0.246, "ragged T=48": 0.0515,
                 "res64 gathered Tq=T/8": 0.7981}
+# The cross-attention kernel this one replaced (fp32 CUDA cores) at the
+# rows of cross_rows, ms (PERF.md: NVIDIA H100 80GB HBM3, 700 W; CUDA
+# events over launches back to back, inputs not rotated; the ragged row
+# from a later run of the same kernel)
+CROSS_FP32_MS = {"res64": 0.0905, "res32": 0.0499, "res16": 0.0716,
+                 "ragged Tq=100": 0.0280}
 # SSD scan kernel against the sequential recurrence, |k - p| <= tol (1 +
 # |p|): the JAX package's bound for its chunked kernel against its oracle
 SSD_TOL = 2e-4
@@ -587,31 +599,45 @@ def bitslice_rows(torch, g) -> dict:
     return rows
 
 
-@phase("kernels")
-def kernels_phase(torch):
+def cross_rows(torch, g) -> dict:
+    """The TIPS cross-attention kernel against its plain version at the
+    main path's three shapes and a ragged Tq, through the contiguous 3-D
+    call, timed with the stream held and the inputs rotated past the L2:
+    out within OUT_ATOL, CAS within CAS_ATOL and the importance masks
+    downstream equal under fixed and adaptive spotting.
+
+    The bound counts 4*BH*Tq*Tk*d operations (q k^T and p @ v), each as
+    three TF32 tensor-core products (the kernel's 3xTF32 scheme) at
+    TF32_FLOPS, against each input read once and out and cas written once.
+    The printed line also gives the fp32-core bound, the replaced fp32
+    kernel's time (``CROSS_FP32_MS``, a constant, so not in the JSON row)
+    and, as a note, ``F.scaled_dot_product_attention``'s time for the
+    output alone on the same inputs (it gives no CAS, so ``library_ms``
+    stays null)."""
+    import torch.nn.functional as F
     from repro_torch.core.precision import PrecisionPolicy, spot_cas
     from repro_torch.kernels.cross_attention_tips.kernel import (
         cross_attention_tips_kernel)
     from repro_torch.kernels.cross_attention_tips.ref import (
         cross_attention_tips_ref)
-    from repro_torch.kernels.patch_reuse.kernel import patch_delta_kernel
-    from repro_torch.kernels.patch_reuse.ref import patch_delta_ref
-    from repro_torch.kernels.runtime import cuda_ms
-
-    g = torch.Generator(device="cuda").manual_seed(1234)
-    dev = "cuda"
-    rows = pssa_rows(torch, g)
-
-    # -- TIPS cross-attention: (label, BH, Tq, Tk, d, main) --------------
+    rows = {}
+    # (label, BH, Tq, Tk, d, main)
     for label, bh, tq, tk, d, main in [
             ("res64", 16, 4096, 77, 40, True),
             ("res32", 16, 1024, 77, 80, False),
             ("res16", 16, 256, 77, 160, False),
             ("ragged Tq=100", 2, 100, 77, 40, False)]:
-        q = torch.randn((bh, tq, d), generator=g, device=dev)
-        k, v = (torch.randn((bh, tk, d), generator=g, device=dev)
+        q = torch.randn((bh, tq, d), generator=g, device="cuda")
+        k, v = (torch.randn((bh, tk, d), generator=g, device="cuda")
                 for _ in range(2))
         k[:, 0] *= CLS_KEY_SCALE        # CAS on both sides of the cut
+        rot = torch.Generator(device="cuda").manual_seed(tq + tk + d)
+        sets = [(q, k, v)]
+        for _ in range(1, math.ceil(
+                2 * L2_BYTES / (4 * (bh * tq * d + 2 * bh * tk * d)))):
+            sets.append(tuple(torch.randn(x.shape, generator=rot,
+                                          device="cuda") for x in (q, k, v)))
+            sets[-1][1][:, 0] *= CLS_KEY_SCALE
         out_k, cas_k = cross_attention_tips_kernel(q, k, v, 0)
         torch.cuda.synchronize()
         out_p, cas_p = cross_attention_tips_ref(q, k, v, 0)
@@ -634,14 +660,85 @@ def kernels_phase(torch):
                     f"importance masks differ")
         print(f"  cross_attention_tips {label}: out max|err| {err_o:.3e}, "
               f"cas max|err| {err_c:.3e}")
-        ms = cuda_ms(cross_attention_tips_kernel, q, k, v, 0, reps=20)
-        plain_ms = cuda_ms(cross_attention_tips_ref, q, k, v, 0, reps=10)
+        ms = rotating_ms(torch, lambda *a: cross_attention_tips_kernel(
+            *a, 0), sets, reps=30)
+        plain_ms = rotating_ms(torch, lambda *a: cross_attention_tips_ref(
+            *a, 0), sets, reps=10)
+        sdpa_ms = rotating_ms(torch, F.scaled_dot_product_attention, sets,
+                              reps=30)
         ops = 2.0 * 2.0 * bh * tq * tk * d           # q k^T + p @ v
         nbytes = 4.0 * (2 * bh * tq * d + 2 * bh * tk * d + bh * tq)
+        fp32 = bound(nbytes, ops, FP32_FLOPS)
+        old = CROSS_FP32_MS[label]
         kernel_row(rows, "cross_attention_tips", label, [bh, tq, tk, d], ms,
-                   plain_ms, bound(nbytes, ops, FP32_FLOPS),
-                   max(err_o, err_c), main)
+                   plain_ms, bound(nbytes, 3.0 * ops, TF32_FLOPS),
+                   max(err_o, err_c), main,
+                   note=f"fp32_core_bound_ms={fp32[0]:.4f} "
+                        f"fp32_kernel_ms={old} ({ms / old:.3f} of it) "
+                        f"sdpa_out_only_ms={sdpa_ms:.4f}")
+        if main:
+            rows["cross_attention_tips"]["sdpa_out_only_ms"] = sdpa_ms
+        del sets, q, k, v, out_k, out_p
+    return rows
 
+
+def cross_heads_check(torch, g) -> None:
+    """``ops.cross_attention_cas`` on the UNet's own head-split views (res
+    64 under CFG: B 2, H 8, Tq 4096, d 40): out and CAS equal to the
+    contiguous 3-D call's bit for bit, the head merge a view of out's
+    memory, and no device kernel in the op but the cross-attention
+    kernel's, so neither q nor out is copied."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.diffusion.unet import _attn_heads, _merge_heads
+    from repro_torch.kernels.cross_attention_tips.kernel import (
+        cross_attention_tips_kernel)
+    from repro_torch.kernels.cross_attention_tips.ops import (
+        cross_attention_cas)
+    b, h, tq, tk, d = 2, 8, 4096, 77, 40
+    x = torch.randn((b, tq, h * d), generator=g, device="cuda")
+    ctx = torch.randn((b, tk, h * d), generator=g, device="cuda")
+    w_q, w_k, w_v = (torch.randn((h * d, h * d), generator=g, device="cuda")
+                     / math.sqrt(h * d) for _ in range(3))
+    q = _attn_heads(x, w_q, h)
+    k, v = _attn_heads(ctx, w_k, h), _attn_heads(ctx, w_v, h)
+    require(not q.is_contiguous(), "the head split gave a contiguous q")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, cas = cross_attention_cas(q, k, v, 0)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0)) > 0}
+    merged = _merge_heads(out)
+    flat = [x.reshape(b * h, t, d).contiguous()
+            for x, t in ((q, tq), (k, tk), (v, tk))]
+    out3, cas3 = cross_attention_tips_kernel(*flat, 0)
+    same = (same_bits(torch, out.reshape(b * h, tq, d), out3)
+            and same_bits(torch, cas.reshape(b * h, tq), cas3))
+    print(f"  cross_attention_tips heads: device kernels in the op "
+          f"{sorted(n[:60] for n in names)}; merge is a view "
+          f"{merged.data_ptr() == out.data_ptr()}; equal to the 3-D call "
+          f"{same}")
+    require(len(names) == 1
+            and "cross_attention_tips_kernel" in next(iter(names)),
+            f"cross_attention_cas ran other device kernels: {names}")
+    require(merged.data_ptr() == out.data_ptr()
+            and merged.untyped_storage().data_ptr()
+            == out.untyped_storage().data_ptr(),
+            "the head merge copied out")
+    require(same, "the head-split call differs from the 3-D call")
+
+
+@phase("kernels")
+def kernels_phase(torch):
+    from repro_torch.kernels.patch_reuse.kernel import patch_delta_kernel
+    from repro_torch.kernels.patch_reuse.ref import patch_delta_ref
+
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    rows = pssa_rows(torch, g)
+
+    rows.update(cross_rows(torch, g))
+    cross_heads_check(torch, g)
     rows.update(bitslice_rows(torch, g))
     rows.update(patch_delta_rows(
         torch, torch.Generator(device="cuda").manual_seed(4321),

@@ -8,7 +8,7 @@ and times each on the card with the inputs rotated past the L2
 on for ``rounds`` runs; a variant's time is the median of its runs.  The
 variants compute wrong results by design: only their times are read.  A
 script gives its variants, the functions to bind and a ``setup`` that makes
-the inputs and the launcher, and calls ``main``.
+the inputs and the launcher for each of its shapes, and calls ``main``.
 """
 from __future__ import annotations
 
@@ -80,15 +80,17 @@ def build_variants(tag: str, src: pathlib.Path, variants: dict, names: list,
 
 
 def main(*, tag: str, doc: str, src: pathlib.Path, variants: dict,
-         names: list, setup, shape: str, rounds: int, common=(),
-         labels=None) -> int:
-    """Parse ``--reps``, build the variants, time them and print each
-    one's runs and the median's saving against the variant "kernel".
-    ``setup(torch, chip_smoke)`` returns (input sets, launcher), where
-    ``launcher(lib)`` gives a function of one input set."""
+         names: list, setup, rounds: int, common=(), labels=None,
+         argv=None) -> int:
+    """Parse ``--reps`` (from ``argv``, default the command line), build
+    the variants, time them and print each one's runs and the median's
+    saving against the variant "kernel", shape by shape.
+    ``setup(torch, chip_smoke)`` returns a list of (shape label, input
+    sets, launcher), where ``launcher(lib)`` gives a function of one input
+    set."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--reps", type=int, default=10)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print(f"{tag}: no CUDA device", file=sys.stderr)
@@ -96,20 +98,24 @@ def main(*, tag: str, doc: str, src: pathlib.Path, variants: dict,
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import chip_smoke
     print(smi(), flush=True)
-    sets, launcher = setup(torch, chip_smoke)
+    cases = setup(torch, chip_smoke)
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_variants(tag, src, variants, names, pathlib.Path(tmp),
                               common, labels)
-        times = {name: [] for name in libs}
-        for r in range(rounds):
-            for name in list(libs)[::-1] if r % 2 else list(libs):
-                times[name].append(chip_smoke.rotating_ms(
-                    torch, launcher(libs[name]), sets, reps=args.reps))
-    med = {name: statistics.median(ts) for name, ts in times.items()}
-    base = med["kernel"]
-    print(f"shape {shape}, ms ({rounds} runs), the median's saving against "
-          f"the kernel's")
-    for name, ts in times.items():
-        print(f"  {name:16s} {' '.join(f'{v:.4f}' for v in ts)}  saves "
-              f"{base - med[name]:+.4f} ms ({(base - med[name]) / base:+.1%})")
+        times = {(case, name): [] for case, _, _ in cases for name in libs}
+        for case, sets, launcher in cases:
+            for r in range(rounds):
+                for name in list(libs)[::-1] if r % 2 else list(libs):
+                    times[case, name].append(chip_smoke.rotating_ms(
+                        torch, launcher(libs[name]), sets, reps=args.reps))
+    for case, _, _ in cases:
+        med = {name: statistics.median(times[case, name]) for name in libs}
+        base = med["kernel"]
+        print(f"shape {case}, ms ({rounds} runs), the median's saving "
+              f"against the kernel's")
+        for name in libs:
+            ts = times[case, name]
+            print(f"  {name:16s} {' '.join(f'{v:.4f}' for v in ts)}  saves "
+                  f"{base - med[name]:+.4f} ms "
+                  f"({(base - med[name]) / base:+.1%})")
     return 0

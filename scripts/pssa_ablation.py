@@ -93,14 +93,13 @@ def setup(torch, chip_smoke):
             if err:
                 raise RuntimeError(f"launch failed: CUDA error {err}")
         return run
-    return sets, launcher
+    return [(f"(BH, Tq, Tk, d, patch) = {SHAPE}", sets, launcher)]
 
 
 if __name__ == "__main__":
     # only the d = 40 instantiation is built
     sys.exit(ka.main(
         tag="pssa_ablation", doc=__doc__, src=SRC, variants=VARIANTS,
-        names=["launch_pssa_attention"], setup=setup,
-        shape=f"(BH, Tq, Tk, d, patch) = {SHAPE}", rounds=2,
+        names=["launch_pssa_attention"], setup=setup, rounds=2,
         common=[(DISPATCH, "  PSSA_CASE(5)")],
         labels={"pssa_attention_kernel": "pssa"}))

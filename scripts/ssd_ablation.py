@@ -114,12 +114,12 @@ def setup(torch, chip_smoke):
             if err:
                 raise RuntimeError(f"launch failed: CUDA error {err}")
         return run
-    return sets, launcher
+    return [(f"(b, heads, T, p, n, chunk) = {SHAPE}", sets, launcher)]
 
 
 if __name__ == "__main__":
     sys.exit(ka.main(
         tag="ssd_ablation", doc=__doc__, src=SRC, variants=VARIANTS,
         names=["launch_ssd_scan", "ssd_scan_workspace_floats"], setup=setup,
-        shape=f"(b, heads, T, p, n, chunk) = {SHAPE}", rounds=3,
+        rounds=3,
         labels=LABELS))

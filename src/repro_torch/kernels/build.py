@@ -102,14 +102,16 @@ def build() -> pathlib.Path:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, out, nnz, xor, bh, tq, tk, kv_len, d, patch, sm_scale,
     # threshold, stream
     "launch_pssa_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _F, _F, _P],
-    # q, k, v, out, cas, bh, tq, tk, d, cls_index, sm_denom, stream
+    # q, k, v, out, cas, b, heads, tq, tk, d, cls_index, sm_denom, the
+    # (batch, head, row) element strides of q, k, v and out, stream
     "launch_cross_attention_tips": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _F, _P],
+                                    _I, _F, *[_L] * 12, _P],
     # hi, lo, w, prec, out, m, k, n, dataflow, stream
     "launch_bitslice_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, ref, out, rows, w, vec4, stream
@@ -124,7 +126,7 @@ _SIGNATURES = {
 # name -> (argtypes, restype)
 _QUERIES = {
     # bh, t, p, n, heads -> floats of launch_ssd_scan's workspace
-    "ssd_scan_workspace_floats": ([_I, _I, _I, _I, _I], ctypes.c_longlong),
+    "ssd_scan_workspace_floats": ([_I, _I, _I, _I, _I], _L),
 }
 
 

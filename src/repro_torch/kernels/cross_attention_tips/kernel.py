@@ -12,6 +12,7 @@ from repro_torch.kernels.runtime import launch_counter
 LAUNCHES = launch_counter("cross_attention_tips")
 MAX_TEXT_KEYS = 128
 MAX_HEAD_DIM = 160
+MAX_BATCH_HEADS = 65535         # the grid's second dimension
 
 
 def _check(name, x, shape):
@@ -24,21 +25,27 @@ def _check(name, x, shape):
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"cross_attention_tips: {name} has shape "
                          f"{tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"cross_attention_tips: {name} must be contiguous")
+    if x.shape[-1] > 1 and x.stride(-1) != 1:
+        raise ValueError(f"cross_attention_tips: {name} must have its last "
+                         f"dimension contiguous")
 
 
-def cross_attention_tips_kernel(q: torch.Tensor, k: torch.Tensor,
-                                v: torch.Tensor, cls_index: int = 0):
-    """(BH, Tq, d) q x (BH, Tk, d) text k/v on the card -> (out, cas).
+def cross_attention_heads_kernel(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, cls_index: int = 0):
+    """(B, H, Tq, d) q x (B, H, Tk, d) text k/v on the card -> (out, cas).
 
-    Launches the CUDA kernel or raises; there is no other route.
+    Any (batch, head, row) strides with d contiguous: the kernel reads
+    through them, so the UNet's head-split views go in uncopied.  ``out``
+    is written as (B, Tq, H, d) memory and returned as its (B, H, Tq, d)
+    view, so merging the heads back is a reshape without a copy; ``cas``
+    is (B, H, Tq).  Launches the CUDA kernel or raises; there is no other
+    route.
     """
-    bh, tq, d = q.shape
-    tk = k.shape[1]
-    _check("q", q, (bh, tq, d))
-    _check("k", k, (bh, tk, d))
-    _check("v", v, (bh, tk, d))
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    _check("q", q, (b, h, tq, d))
+    _check("k", k, (b, h, tk, d))
+    _check("v", v, (b, h, tk, d))
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"cross_attention_tips: head dim {d} outside "
                          f"[1, {MAX_HEAD_DIM}]")
@@ -48,13 +55,32 @@ def cross_attention_tips_kernel(q: torch.Tensor, k: torch.Tensor,
     if not 0 <= cls_index < tk:
         raise ValueError(f"cross_attention_tips: cls_index {cls_index} "
                          f"outside the {tk} text keys")
+    if not 1 <= b * h <= MAX_BATCH_HEADS:
+        raise ValueError(f"cross_attention_tips: {b} x {h} batch heads "
+                         f"outside [1, {MAX_BATCH_HEADS}]")
     lib = build.library()
-    out = torch.empty_like(q)
-    cas = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, tq, h, d), dtype=torch.float32,
+                      device=q.device).transpose(1, 2)
+    cas = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
     err = lib.launch_cross_attention_tips(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        cas.data_ptr(), bh, tq, tk, d, cls_index, float(d) ** 0.5, stream)
+        cas.data_ptr(), b, h, tq, tk, d, cls_index, float(d) ** 0.5,
+        *strides, stream)
     build.check(err, "cross_attention_tips")
     LAUNCHES.bump()
     return out, cas
+
+
+def cross_attention_tips_kernel(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, cls_index: int = 0):
+    """(BH, Tq, d) q x (BH, Tk, d) text k/v on the card, d contiguous ->
+    (out (BH, Tq, d), cas (BH, Tq)): the kernel with one head a batch row.
+
+    Launches the CUDA kernel or raises; there is no other route.
+    """
+    bh, tq, d = q.shape
+    out, cas = cross_attention_heads_kernel(
+        q.unsqueeze(1), k.unsqueeze(1), v.unsqueeze(1), cls_index)
+    return out.reshape(bh, tq, d), cas.reshape(bh, tq)

@@ -2,15 +2,18 @@
 
 A CUDA tensor goes through the hand-written kernel, which holds the whole
 text stripe and masks keys past Tk itself (the JAX package pads them to a
-multiple of 8 for the TPU's sublanes; the CUDA kernel needs no padding); a
-CPU tensor goes through the plain PyTorch version.
+multiple of 8 for the TPU's sublanes; the CUDA kernel pads and masks in
+shared memory).  It reads q, k and v through their strides and writes
+``out`` as (B, Tq, H, d) memory seen as (B, H, Tq, d), so neither the
+UNet's head split nor its head merge copies.  A CPU tensor goes through
+the plain PyTorch version.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.cross_attention_tips.kernel import (
-    cross_attention_tips_kernel)
+    cross_attention_heads_kernel)
 from repro_torch.kernels.cross_attention_tips.ref import (
     cross_attention_tips_ref)
 
@@ -22,11 +25,12 @@ def cross_attention_cas(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``cls_index``."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    qf = q.reshape(b * h, tq, d).contiguous()
-    kf = k.reshape(b * h, tk, d).contiguous()
-    vf = v.reshape(b * h, tk, d).contiguous()
     if q.is_cuda:
-        out, cas = cross_attention_tips_kernel(qf, kf, vf, cls_index)
-    else:
-        out, cas = cross_attention_tips_ref(qf, kf, vf, cls_index)
+        # the kernel needs only d contiguous, which the head split keeps
+        return cross_attention_heads_kernel(
+            *(x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v)),
+            cls_index)
+    out, cas = cross_attention_tips_ref(q.reshape(b * h, tq, d),
+                                        k.reshape(b * h, tk, d),
+                                        v.reshape(b * h, tk, d), cls_index)
     return out.reshape(b, h, tq, d), cas.reshape(b, h, tq)

@@ -126,8 +126,16 @@ def test_patch_bitmap_kernel_matches_plain(cuda, rows, tk, patch):
     assert torch.equal(counts, counts_p)
 
 
+# (BH, Tq, Tk, d): the main path's three shapes (res 64, 32, 16 under
+# CFG); one key, one 8-key n-tile and the most keys; the narrowest d and
+# the widest; one query row, and Tq = 100, not a multiple of the kernel's
+# 16-row warp tile.
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("bh,tq,tk,d", [(4, 256, 77, 40), (2, 100, 7, 8)])
+@pytest.mark.parametrize("bh,tq,tk,d", [
+    (4, 256, 77, 40), (2, 100, 7, 8),
+    (16, 4096, 77, 40), (16, 1024, 77, 80), (16, 256, 77, 160),
+    (2, 100, 1, 40), (2, 100, 8, 40), (2, 100, 128, 40),
+    (2, 64, 77, 8), (2, 64, 77, 160), (3, 1, 77, 40)])
 def test_cross_kernel_matches_plain(cuda, bh, tq, tk, d):
     g = torch.Generator(device=cuda).manual_seed(tq + tk)
     q = torch.randn((bh, tq, d), generator=g, device=cuda)
@@ -137,6 +145,68 @@ def test_cross_kernel_matches_plain(cuda, bh, tq, tk, d):
     out_p, cas_p = cross_attention_tips_ref(q, k, v)
     torch.testing.assert_close(out, out_p, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(cas, cas_p, rtol=0, atol=1e-6)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("tk,cls_index", [(77, 5), (77, 76), (128, 127),
+                                          (8, 3)])
+def test_cross_kernel_cls_index(cuda, tk, cls_index):
+    g = torch.Generator(device=cuda).manual_seed(tk + cls_index)
+    q = torch.randn((4, 256, 40), generator=g, device=cuda)
+    k, v = (torch.randn((4, tk, 40), generator=g, device=cuda)
+            for _ in range(2))
+    k[:, cls_index] *= 2.5
+    out, cas = cross_attention_tips_kernel(q, k, v, cls_index)
+    out_p, cas_p = cross_attention_tips_ref(q, k, v, cls_index)
+    torch.testing.assert_close(out, out_p, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(cas, cas_p, rtol=0, atol=1e-6)
+
+
+# (B, H, Tq, d): res 64 and res 16 under CFG, and d = 13 (odd rows: the
+# kernel's 4-byte copies and scalar loads and stores)
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,h,tq,d", [(2, 8, 4096, 40), (2, 8, 256, 160),
+                                      (1, 3, 100, 13)])
+def test_cross_op_reads_the_head_split_views(cuda, b, h, tq, d):
+    """The op on the views the UNet's head split makes: out equals the
+    contiguous 3-D call's bit for bit, and the head merge is a view of
+    out's memory (no copy on the way in or out)."""
+    from repro_torch.diffusion.unet import _attn_heads, _merge_heads
+    from repro_torch.kernels.cross_attention_tips.ops import (
+        cross_attention_cas)
+    g = torch.Generator(device=cuda).manual_seed(tq + d)
+    x = torch.randn((b, tq, h * d), generator=g, device=cuda)
+    ctx = torch.randn((b, 77, h * d), generator=g, device=cuda)
+    w_q, w_k, w_v = (torch.randn((h * d, h * d), generator=g, device=cuda)
+                     / (h * d) ** 0.5 for _ in range(3))
+    q = _attn_heads(x, w_q, h)
+    k, v = _attn_heads(ctx, w_k, h), _attn_heads(ctx, w_v, h)
+    assert not q.is_contiguous()
+    out, cas = cross_attention_cas(q, k, v)
+    assert out.shape == (b, h, tq, d) and cas.shape == (b, h, tq)
+    flat = [t.reshape(b * h, -1, d).contiguous() for t in (q, k, v)]
+    out3, cas3 = cross_attention_tips_kernel(*flat)
+    assert torch.equal(out.reshape(b * h, tq, d), out3)
+    assert torch.equal(cas.reshape(b * h, tq), cas3)
+    merged = _merge_heads(out)
+    assert merged.data_ptr() == out.data_ptr()
+    assert (merged.untyped_storage().data_ptr()
+            == out.untyped_storage().data_ptr())
+    out_p, cas_p = cross_attention_tips_ref(*flat)
+    torch.testing.assert_close(out3, out_p, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(cas3, cas_p, rtol=0, atol=1e-6)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("tk,d,cls_index,match", [
+    (129, 40, 0, "text keys"), (77, 161, 0, "head dim"),
+    (77, 40, 77, "cls_index")])
+def test_cross_kernel_refuses_what_it_does_not_take(cuda, tk, d, cls_index,
+                                                    match):
+    q = torch.zeros((2, 64, d), device=cuda)
+    k = torch.zeros((2, tk, d), device=cuda)
+    with pytest.raises(ValueError, match=match):
+        cross_attention_tips_kernel(q, k, k, cls_index)
 
 
 # (M, K, N, operands, prec): K = 77 and 100 are not multiples of the
