@@ -36,26 +36,35 @@ no result line):
 4. slice       — full-width BK-SDM-Tiny text-to-image, 25 DDIM steps at
                  guidance 7.5, through ``DiffusionEngine.generate`` on the
                  kernel route; launch counters must read 225/225/450;
-5. bitmap      — the PSXU entry point ``dispatch.patch_bitmap`` on the
+5. slots       — slot serving on the slice's engine: two requests through
+                 2 slots bit-equal to ``generate`` at batch 2, ledger
+                 headline key for key; a staggered ddim@25 + dpm2m@12 bank
+                 drain of three requests, bit-equal to banked one-shot
+                 runs on the float FFN and within a bound on the slice
+                 route (DBSC's shared scale); 9/9/18 launches per step,
+                 none in admit, decode or retire; s per slot_step at 1, 2
+                 and 4 slots, each kernel against its plain version on a
+                 4-slot step's inputs;
+6. bitmap      — the PSXU entry point ``dispatch.patch_bitmap`` on the
                  pruned SAS of one cond row at res 64/32/16 (full-width
                  weights): kernel against plain bit for bit, per-row sums
                  of the counts against the PSSA popcount, 3 launches;
-6. temporal    — the slice with temporal patch reuse: threshold 0 equals
+7. temporal    — the slice with temporal patch reuse: threshold 0 equals
                  the dense latents (as far as a dense witness agrees with
                  itself), threshold 0.05 launches 225/225/450/225;
-7. edit        — img2img replay at capacity 1/8 against recorded base
+8. edit        — img2img replay at capacity 1/8 against recorded base
                  caches: the same input computes nothing and returns the
                  base latents; a re-noised window stays within the cap and
                  runs PSSA on T/8 queries; an a-priori window runs no
                  patch delta;
-8. parity      — two full-width steps from the same latents, route against
+9. parity      — two full-width steps from the same latents, route against
                  route: the reference policy against the fused attention
                  kernels, then reference attention + DBSC against the
                  slice's route (fused + DBSC) on three seeds, then the
                  reference route against the fused route with temporal
                  reuse; latents, ledger headlines and per-layer PSSA and
                  reuse counters must agree within the limits below.
-9. serve       — mamba2-130m at full width (random weights from a seed)
+10. serve      — mamba2-130m at full width (random weights from a seed)
                  through ``repro_torch.launch.serve.serve``: batch 4, a
                  4096-token prompt, 64 greedy tokens, prefill's scan on the
                  ``ssd_scan`` kernel (24 launches, none in decode); the
@@ -114,6 +123,18 @@ REUSE_THRESHOLD = 0.05      # ReusePolicy.temporal() / .edit() default
 REUSE_TIE_REL = 1e-3        # |delta - thr| / thr at a flipped patch: a tie
 EDIT_CAPACITY = 0.125
 EDIT_WINDOW = (4, 4, 8, 8)  # latent pixels (y0, x0, h, w) re-noised
+SLOT_TIPS_SCALE = (1.25, 1.0, 0.8)  # (b)'s dpm2m policy: TIPS cut by phase
+SLOT_COUNTS = (1, 2, 4)             # s per slot_step at these slot counts
+SLOT_TIMED_STEPS = 4                # timed steps per slot count (1 warm-up)
+# On the DBSC route a staggered slot row shares its per-tensor INT12 scale
+# with other requests and steps, which redraws its rounding: it is held
+# to this share of the distance between its one-shot runs on the DBSC and
+# the float FFN.  The H100 read 0.15-0.23 % (5.8e-3 to 7.3e-3 of 2.8 to
+# 4.9); a request admitted one step ahead, or two rows' solver histories
+# swapped, read far above it (PERF.md, PR 19).
+DBSC_SLOT_SHARE = 0.01
+SLICE_ROUTE_PER_STEP = {"pssa_attention": 9, "cross_attention_tips": 9,
+                        "bitslice_matmul": 18}
 L2_BYTES = 50e6             # H100 L2: timed inputs rotate past it
 # The bit-slice kernel this one replaced (an int32 GEMM on the CUDA
 # cores) at the six main-path shapes, ms (PERF.md: NVIDIA H100 80GB HBM3,
@@ -1084,6 +1105,463 @@ def slice_phase(torch):
     return eng, counts
 
 
+def _slot_request(torch, eng, seed):
+    toks, un = _tokens(torch, eng.cfg, seed)
+    lat = eng.init_latents(1, torch.Generator(device="cuda")
+                           .manual_seed(seed + 1))
+    return toks, un, lat
+
+
+def _drain_slots(torch, eng, reqs, num_slots, bank=None, policies=None):
+    """Serve ``reqs`` in queue order through ``num_slots`` slots, filling
+    every free slot between steps.  Returns the drained state, each
+    request's final latents, image and decode chunk size, the slot_step
+    walls and the drain's wall seconds (admissions, steps, decodes and
+    retirements).  Admissions, decodes and retirements must launch no
+    kernel: the counters may move only inside ``slot_step``."""
+    from repro_torch.kernels import runtime
+
+    queue = list(range(len(reqs)))
+    owner, lats, imgs, chunk, walls = {}, {}, {}, {}, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = eng.init_slots(num_slots, bank=bank)
+
+    def quiet(fn):
+        before = runtime.launch_counts()
+        out = fn()
+        require(runtime.launch_counts() == before,
+                f"{fn.__name__} launched a kernel")
+        return out
+
+    def fill(state):
+        for s in range(num_slots):
+            if s not in owner and queue:
+                r = queue.pop(0)
+                toks, un, lat = reqs[r]
+
+                def admit():
+                    return eng.admit(state, s, toks, uncond_tokens=un,
+                                     latents=lat, policy_index=(
+                                         0 if policies is None
+                                         else policies[r]))
+                state = quiet(admit)
+                owner[s] = r
+        return state
+
+    state = fill(state)
+    while owner:
+        state = eng.slot_step(state)
+        walls.append(eng.last_wall_s)
+        done = eng.finished_slots(state)
+        if done:
+            def decode():
+                return eng.decode_slots(state, done)
+            images = quiet(decode)
+            for j, s in enumerate(done):
+                r = owner.pop(s)
+                lats[r] = state.latents[s:s + 1].clone()
+                imgs[r] = images[j:j + 1]
+                chunk[r] = len(done)
+
+            def retire():
+                return eng.retire(state, done)
+            state = quiet(retire)
+        state = fill(state)
+    torch.cuda.synchronize()
+    return state, lats, imgs, chunk, walls, time.perf_counter() - t0
+
+
+def _hold_launches(counts, steps, per_step, label):
+    want = {k: v * steps for k, v in per_step.items()}
+    got = {k: counts.get(k, 0) for k in want}
+    print(f"  {label}: launches {json.dumps(got)} over {steps} slot steps")
+    require(got == want, f"{label}: launches {got} != {want}")
+
+
+def _policy_witnesses(torch, eng, reqs, policies, bank):
+    """One-shot witnesses of a banked drain: one ``generate`` per policy
+    under the whole bank, that policy's requests as the rows of one batch
+    (a lone request tiled to two rows).  Returns each request's output
+    row (an ``EngineOutput`` of one row) and each policy's output.
+
+    One call per policy sums the policy's counters over its requests in
+    integers before the one float32 conversion, as the accumulator does;
+    calls of one request each would convert apart, and at full width
+    (nnz past 2^24) the sums then differ in float32's last place.  A
+    lone request's terms double exactly.  (``stats_rows`` cannot pick
+    one row: under fused CFG the first block's self-attention runs
+    before the tiling to [cond | uncond] and accounts every request row,
+    as in the JAX package; ROADMAP Queue 3.)"""
+    rows, outs = {}, {}
+    for p, pol in enumerate(bank):
+        mine = [r for r in range(len(reqs)) if policies[r] == p]
+        take = mine if len(mine) > 1 else mine * 2
+        out = outs[p] = eng.generate(
+            torch.cat([reqs[r][0] for r in take]),
+            uncond_tokens=torch.cat([reqs[r][1] for r in take]),
+            latents=torch.cat([reqs[r][2] for r in take]),
+            sampler_policy=pol, sampler_bank=bank)
+        for j, r in enumerate(mine):
+            rows[r] = dataclasses.replace(out, images=out.images[j:j + 1],
+                                          latents=out.latents[j:j + 1])
+    return rows, outs
+
+
+def _hold_images(torch, eng, label, r, img, chunk, witness):
+    """A slot image against its one-shot witness (decoded at batch 2):
+    bit for bit when it was decoded in a chunk of 2, else within what
+    decoding the witness latents at batch 1 moves them (printed)."""
+    from repro_torch.diffusion.vae import decode
+    if chunk == 2:
+        require(same_bits(torch, img, witness.images[:1]),
+                f"{label} request {r}: image differs from the one-shot "
+                f"image at equal decode batch")
+        print(f"  {label} request {r}: image bit-equal (decode batch 2)")
+        return
+    b1 = decode(eng.vae_params, witness.latents[:1], eng.cfg.vae)
+    move = (b1 - witness.images[:1]).abs().max().item()
+    diff = (img - witness.images[:1]).abs().max().item()
+    print(f"  {label} request {r}: image (decode batch 1) against the "
+          f"one-shot image (batch 2) max|diff| {diff:.3e}; decoding the "
+          f"one-shot latents at batch 1 moves them {move:.3e}")
+    require(diff <= move, f"{label} request {r}: image differs by {diff} "
+            f"> {move}")
+
+
+def _encode_cost(torch, eng, batches=(2, 4), reps=5):
+    """What encoding prompts one row at a time (``DiffusionEngine._encode``,
+    which slot serving's bit-equality needs) costs ``generate`` at batch B
+    against encoding the batch in one call, as the engine did before:
+    the two encodes' median ms each way, one ``generate`` wall each way
+    (the batched one replays the engine's steps with the batch encoded in
+    one call) and how far the contexts and final latents move."""
+    from repro_torch.diffusion.sampler import sample_scan
+    from repro_torch.diffusion.text_encoder import encode_text
+    from repro_torch.diffusion.vae import decode
+
+    cfg = eng.cfg
+
+    def median_ms(fn):
+        fn()
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return sorted(walls)[reps // 2]
+
+    for b in batches:
+        pairs = [_tokens(torch, cfg, 71 + i) for i in range(b)]
+        toks = torch.cat([p[0] for p in pairs])
+        un = torch.cat([p[1] for p in pairs])
+        lat = eng.init_latents(b, torch.Generator(device="cuda")
+                               .manual_seed(81 + b))
+
+        def whole(t):
+            return encode_text(eng.text_params, t, cfg.text)
+
+        ctx_diff = (eng._encode(toks) - whole(toks)).abs().max().item()
+        rows_ms = median_ms(lambda: (eng._encode(toks), eng._encode(un)))
+        whole_ms = median_ms(lambda: (whole(toks), whole(un)))
+
+        def batched_generate():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _ = sample_scan(eng._unet_apply, lat.clone(), whole(toks),
+                                 whole(un), cfg.ddim)
+            decode(eng.vae_params, out, cfg.vae)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        eng.generate(toks, uncond_tokens=un, latents=lat.clone())  # warm-up
+        before, before_s = batched_generate()
+        after = eng.generate(toks, uncond_tokens=un, latents=lat.clone())
+        moved = (after.latents - before).abs().max().item()
+        print(f"generate at batch {b}: {eng.last_wall_s:.4f} s encoding row "
+              f"by row, {before_s:.4f} s encoding the batch in one call; "
+              f"the two encodes {rows_ms:.3f} ms against {whole_ms:.3f} ms; "
+              f"contexts max|diff| {ctx_diff:.3e}, final latents "
+              f"{moved:.3e}")
+        require(math.isfinite(moved), f"batch {b}: non-finite latents")
+
+
+def _capture_kernel_inputs(run):
+    """``run()`` with the three main-path kernel wrappers wrapped, so that
+    the first call of each distinct set of input shapes keeps its inputs
+    (the tensors as the path hands them over: strided views included)."""
+    from repro_torch.kernels.bitslice_matmul import ops as dbsc_ops
+    from repro_torch.kernels.cross_attention_tips import ops as cross_ops
+    from repro_torch.kernels.pssa_attention import ops as pssa_ops
+
+    seen = {}
+    patched = [(pssa_ops, "pssa_attention_kernel"),
+               (cross_ops, "cross_attention_heads_kernel"),
+               (dbsc_ops, "bitslice_matmul_kernel")]
+    origs = [getattr(m, n) for m, n in patched]
+    for (mod, name), orig in zip(patched, origs):
+        def keep(*a, _orig=orig, _name=name, **kw):
+            key = (_name,) + tuple(tuple(x.shape) for x in a
+                                   if hasattr(x, "shape"))
+            seen.setdefault(key, (a, kw))
+            return _orig(*a, **kw)
+        setattr(mod, name, keep)
+    try:
+        run()
+    finally:
+        for (mod, name), orig in zip(patched, origs):
+            setattr(mod, name, orig)
+    return seen
+
+
+def _hold_slot_kernels(torch, seen, label, cfg, slots):
+    """Each kernel against its plain version on the inputs one slot step
+    of ``slots`` slots handed it: PSSA as the kernels phase holds it
+    (counters exact below T = 4096, the tie rule at it), cross-attention
+    within OUT_ATOL and CAS_ATOL, the bit-slice matmul bit for bit.  All
+    three wrappers must have been caught at the step's largest shapes:
+    2 * slots UNet rows under fused CFG, so PSSA BH = rows * heads, the
+    cross-attention's B = rows and the bit-slice M = rows * latent**2."""
+    from repro_torch.kernels.bitslice_matmul.kernel import (
+        bitslice_matmul_kernel)
+    from repro_torch.kernels.bitslice_matmul.ref import bitslice_matmul_ref
+    from repro_torch.kernels.cross_attention_tips.kernel import (
+        cross_attention_heads_kernel)
+    from repro_torch.kernels.cross_attention_tips.ref import (
+        cross_attention_tips_ref)
+    from repro_torch.kernels.pssa_attention.kernel import (
+        pssa_attention_kernel)
+    from repro_torch.kernels.pssa_attention.ref import (
+        pssa_attention_stats_ref)
+
+    rows = 2 * slots
+    lead = {}
+    for name, first, *_ in seen:
+        lead[name] = max(lead.get(name, 0), first[0])
+    want = {"pssa_attention_kernel": rows * cfg.unet.num_heads,
+            "cross_attention_heads_kernel": rows,
+            "bitslice_matmul_kernel": rows * cfg.unet.latent_size ** 2}
+    print(f"  {label}: largest leading dimension caught {json.dumps(lead)}")
+    require(lead == want, f"{label}: kernel inputs caught at leading "
+            f"dimensions {lead}, want {want}")
+    for key, (a, kw) in seen.items():
+        name, shapes = key[0], key[1:]
+        if name == "pssa_attention_kernel":
+            q, k, v, thr, patch = a
+            check_pssa(torch, f"{label} pssa_attention {list(shapes[0])}",
+                       q, k, patch, pssa_attention_kernel(q, k, v, thr, patch),
+                       pssa_attention_stats_ref(q, k, v, thr, patch),
+                       exact=k.shape[1] < 4096)
+        elif name == "cross_attention_heads_kernel":
+            q, k, v, cls = a
+            b, h, tq, d = q.shape
+            out_k, cas_k = cross_attention_heads_kernel(q, k, v, cls)
+            out_p, cas_p = cross_attention_tips_ref(
+                *(x.reshape(b * h, x.shape[2], d) for x in (q, k, v)), cls)
+            err_o = (out_k.reshape(b * h, tq, d) - out_p).abs().max().item()
+            err_c = (cas_k.reshape(b * h, tq) - cas_p).abs().max().item()
+            print(f"  {label} cross_attention_tips {list(q.shape)}: out "
+                  f"max|err| {err_o:.3e}, CAS {err_c:.3e}")
+            require(err_o <= OUT_ATOL and err_c <= CAS_ATOL,
+                    f"{label} cross_attention_tips {list(q.shape)}: out "
+                    f"{err_o}, CAS {err_c}")
+        else:
+            hi, lo, w, prec = a
+            same = torch.equal(bitslice_matmul_kernel(hi, lo, w, prec, **kw),
+                               bitslice_matmul_ref(hi, lo, w, prec))
+            mkn = [hi.shape[0], hi.shape[1], w.shape[1]]
+            print(f"  {label} bitslice_matmul {mkn}: bit-exact {same}")
+            require(same, f"{label} bitslice_matmul {list(hi.shape)}: not "
+                          f"bit-exact")
+
+
+@phase("slots")
+def slots_phase(torch, eng):
+    """Slot serving (continuous batching) at full width on the slice's
+    weights and guidance 7.5.
+
+    (a) Two ddim@25 requests admitted together into 2 slots: the final
+        latents bit-equal to ``generate`` at batch 2 on the same tokens
+        and latents, the images too (one decode chunk of 2), and
+        ``energy_report_from_accum`` equal to ``energy_report_multi`` of
+        that call key for key.  Slice route (fused + DBSC); 9 / 9 / 18
+        launches per slot_step, none in admit, decode or retire.  Then
+        what encoding prompts row by row costs ``generate`` at batch 2 and
+        4 (``_encode_cost``).
+    (b) A bank of ddim@25 and dpm2m@12, the dpm2m policy with a phase
+        schedule on ``tips_scale`` only (so every step still runs the
+        three kernels): three requests through 2 slots, the third
+        admitted into the slot the dpm2m request frees, so rows sit at
+        different steps and policies in one call.  Each request's final
+        latents against ``generate(sampler_policy=p, sampler_bank=bank)``
+        at batch 2 (the policy's two requests, or its one request tiled)
+        and the per-policy headlines of ``energy_report_banked`` against
+        those one-shot runs (``_policy_witnesses``).  On the fused attention + float FFN route they must be
+        bit-equal and key-for-key equal.  On the slice route the DBSC FFN
+        quantizes on one scale over the whole (rows x tokens, C) matrix,
+        so a row's codes follow what shares its batch (ROADMAP Queue 3):
+        each request's latents, ``mj_per_iter_with_ema`` and optimized
+        EMA bytes are held to DBSC_SLOT_SHARE of the distance between its
+        one-shot runs on the two routes (the headlines at least to
+        LEDGER_RTOL); launches 9 / 9 / 18 per slot_step.
+    Then s per slot_step at SLOT_COUNTS slots; at the largest (PSSA BH
+    64, the bit-slice matmul M 32768) each kernel is held against its
+    plain version on the inputs that slot step handed it, and one more
+    step runs under the profiler.  Nothing timed sets a limit.
+    """
+    from repro_torch.diffusion.engine import DiffusionEngine
+    from repro_torch.diffusion.pipeline import (energy_report_banked,
+                                                energy_report_from_accum,
+                                                energy_report_multi)
+    from repro_torch.diffusion.solvers import PhaseSchedule, SamplerPolicy
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.dispatch import KernelPolicy
+
+    cfg = eng.cfg
+    params = {"text": eng.text_params, "unet": eng.unet_params,
+              "vae": eng.vae_params}
+
+    # (a) equal-shape oracle on the slice route
+    reqs = [_slot_request(torch, eng, seed) for seed in (41, 43)]
+    runtime.reset_launch_counts()
+    state, lats, imgs, chunk, walls, wall = _drain_slots(torch, eng, reqs, 2)
+    counts = runtime.launch_counts()
+    print(f"(a) two ddim@{cfg.ddim.num_inference_steps} requests, 2 slots: "
+          f"{len(walls)} slot steps, drain {wall:.3f} s")
+    _hold_launches(counts, len(walls), SLICE_ROUTE_PER_STEP, "(a)")
+    out = eng.generate(torch.cat([r[0] for r in reqs]),
+                       uncond_tokens=torch.cat([r[1] for r in reqs]),
+                       latents=torch.cat([r[2] for r in reqs]))
+    for r in range(2):
+        require(same_bits(torch, lats[r], out.latents[r:r + 1]),
+                f"(a) request {r}: latents differ from generate at batch 2 "
+                f"by {(lats[r] - out.latents[r:r + 1]).abs().max().item()}")
+        _hold_images(torch, eng, "(a)", r, imgs[r], chunk[r],
+                     dataclasses.replace(out, images=out.images[r:r + 1],
+                                         latents=out.latents[r:r + 1]))
+    acc_rep = energy_report_from_accum(cfg, state.accum).summary()
+    one_rep = energy_report_multi(cfg, [out.stats]).summary()
+    print("  energy_report_from_accum " + json.dumps(acc_rep))
+    require(acc_rep == one_rep, f"(a) accumulator headline {acc_rep} != "
+            f"one-shot {one_rep}")
+    print("  (a) latents bit-equal, headline equal key for key")
+    _encode_cost(torch, eng)
+
+    # (b) staggered banked drain, on two routes
+    bank = (SamplerPolicy.ddim(cfg.ddim.num_inference_steps),
+            SamplerPolicy.dpm2m(12, phases=PhaseSchedule(
+                tips_scale=SLOT_TIPS_SCALE)))
+    policies = [0, 1, 1]
+    reqs = [_slot_request(torch, eng, seed) for seed in (51, 53, 55)]
+    routes = (("fused attention + float FFN", KernelPolicy(
+                  self_attention="fused", cross_attention="fused")),
+              ("slice route", cfg.unet.kernel_policy))
+    witnesses, heads = {}, {}
+    for label, pol in routes:
+        exact = pol.ffn != "dbsc"
+        rcfg = dataclasses.replace(cfg, unet=dataclasses.replace(
+            cfg.unet, kernel_policy=pol))
+        e = eng if exact is False else DiffusionEngine(rcfg, params=params)
+        runtime.reset_launch_counts()
+        state, lats, imgs, chunk, walls, wall = _drain_slots(
+            torch, e, reqs, 2, bank=bank, policies=policies)
+        counts = runtime.launch_counts()
+        print(f"(b) {label}: {len(walls)} slot steps, drain {wall:.3f} s, "
+              f"{len(reqs) / wall:.3f} images/s")
+        per_step = dict(SLICE_ROUTE_PER_STEP)
+        if exact:
+            per_step["bitslice_matmul"] = 0
+        _hold_launches(counts, len(walls), per_step, f"(b) {label}")
+        banked = energy_report_banked(rcfg, state.accum, bank)
+        print(f"  energy_report_banked ({label}) "
+              + json.dumps(banked.summary()))
+        wit, outs = _policy_witnesses(torch, e, reqs, policies, bank)
+        witnesses[label] = wit
+        moved, dist = {}, {}
+        for r in range(len(reqs)):
+            d = moved[r] = (lats[r] - wit[r].latents[:1]).abs().max().item()
+            print(f"  {label} request {r} ({bank[policies[r]].key()}): "
+                  f"latents max|diff| {d:.3e} against generate at batch 2")
+            if not exact:
+                fl = witnesses[routes[0][0]][r].latents[:1]
+                dist[r] = (wit[r].latents[:1] - fl).abs().max().item()
+                print(f"    the one-shot run's own DBSC against float FFN "
+                      f"distance {dist[r]:.3e}")
+        for r in range(len(reqs)):
+            require(bool(torch.isfinite(lats[r]).all()),
+                    f"(b) {label} request {r}: non-finite latents")
+            if exact:
+                require(same_bits(torch, lats[r], wit[r].latents[:1]),
+                        f"(b) {label} request {r}: latents differ by "
+                        f"{moved[r]}")
+                _hold_images(torch, e, f"(b) {label}", r, imgs[r],
+                             chunk[r], wit[r])
+            else:
+                lim = DBSC_SLOT_SHARE * dist[r]
+                require(moved[r] <= lim, f"(b) {label} request {r}: "
+                        f"latents differ by {moved[r]} > {lim}")
+        heads[label] = []
+        for p, entry in enumerate(banked.entries):
+            ref = energy_report_multi(rcfg, [outs[p].stats],
+                                      sampler_policy=bank[p]).summary()
+            heads[label].append(ref)
+            got = entry.report.summary()
+            require(entry.images == policies.count(p), f"(b) {label}: "
+                    f"{entry.images} images under {bank[p].key()}")
+            if exact:
+                require(got == ref, f"(b) {label} {bank[p].key()}: "
+                        f"headline {got} != one-shot {ref}")
+                continue
+            fl = heads[routes[0][0]][p]
+            rel, lim = {}, {}
+            for k in HEADLINES:
+                rel[k] = abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-30)
+                lim[k] = max(LEDGER_RTOL, DBSC_SLOT_SHARE * abs(
+                    ref[k] - fl[k]) / max(abs(ref[k]), 1e-30))
+            print(f"  {label} {bank[p].key()}: headline relative "
+                  + ", ".join(f"{k} {rel[k]:.3e} (limit {lim[k]:.3e})"
+                              for k in HEADLINES))
+            for k in ("ema_gb_per_iter_optimized", "mj_per_iter_with_ema"):
+                require(rel[k] <= lim[k], f"(b) {label} "
+                        f"{bank[p].key()}: {k} differs by {rel[k]}")
+        if exact:
+            print(f"  (b) {label}: latents bit-equal, per-policy headlines "
+                  f"equal key for key")
+
+    # s per slot_step on the slice route; at the largest slot count the
+    # warm-up step's kernel inputs are held against the plain versions
+    for n in SLOT_COUNTS:
+        state = eng.init_slots(n)
+        for s in range(n):
+            toks, un, lat = _slot_request(torch, eng, 61 + s)
+            state = eng.admit(state, s, toks, uncond_tokens=un, latents=lat)
+        if n == SLOT_COUNTS[-1]:
+            box = []
+            seen = _capture_kernel_inputs(
+                lambda: box.append(eng.slot_step(state)))
+            state = box[0]
+            _hold_slot_kernels(torch, seen, f"{n} slots", cfg, n)
+            del seen
+        else:
+            state = eng.slot_step(state)              # warm-up
+        walls = []
+        for _ in range(SLOT_TIMED_STEPS):
+            state = eng.slot_step(state)
+            walls.append(eng.last_wall_s)
+        require(bool(torch.isfinite(state.latents).all()),
+                f"{n} slots: non-finite latents")
+        print(f"slot_step at {n} slots: s {' '.join(f'{w:.4f}' for w in walls)}"
+              f" (median {sorted(walls)[len(walls) // 2]:.4f})")
+    box = [state]
+
+    def step():
+        box[0] = eng.slot_step(box[0])
+        return eng.last_wall_s
+    profile_breakdown(torch, step, f"slot_step {SLOT_COUNTS[-1]} slots")
+
+
 def profile_breakdown(torch, run, tag: str, top: int = 15):
     """Device time by kernel over one more ``run()`` (which returns its
     wall seconds), under torch.profiler; this run's counts and wall time
@@ -1648,6 +2126,7 @@ def main() -> int:
         build_kernels()
         rows = kernels_phase(torch)
         eng, counts = slice_phase(torch)
+        slots_phase(torch, eng)
         bitmap_rows, bitmap_counts = bitmap_phase(torch, eng)
         reuse_counts, dense_s = temporal_phase(torch, eng)
         edit_phase(torch, eng, dense_s)

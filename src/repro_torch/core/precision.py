@@ -51,16 +51,24 @@ class PrecisionPolicy:
         return cls(spotting="adaptive", target_low_ratio=target_low_ratio)
 
 
-def spot_cas(cas: torch.Tensor, policy: PrecisionPolicy) -> tips.TIPSResult:
+def spot_cas(cas: torch.Tensor, policy: PrecisionPolicy,
+             threshold_scale=None) -> tips.TIPSResult:
     """Importance spotting from head-averaged CAS (..., Tq) per the policy.
 
     ``torch.quantile`` and ``jnp.quantile`` both interpolate linearly.
+    ``threshold_scale`` (a (B,) float32, phase-scheduled sampling) scales
+    each row's threshold, fixed or adaptive; None leaves both modes as
+    they were, op for op.
     """
     if policy.spotting == "adaptive":
         thr = torch.quantile(cas, 1.0 - policy.target_low_ratio, dim=-1,
                              keepdim=True)
     else:
         thr = policy.threshold
+    if threshold_scale is not None:
+        scale = threshold_scale.reshape(
+            threshold_scale.shape + (1,) * (cas.ndim - threshold_scale.ndim))
+        thr = thr * scale
     important = cas < thr
     low_ratio = 1.0 - important.to(torch.float32).mean()
     return tips.TIPSResult(important=important, cas=cas,

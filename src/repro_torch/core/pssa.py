@@ -104,6 +104,36 @@ def compress_stats(sas: torch.Tensor, patch: int,
     return _assemble_stats(nnz, ones_xor, sas.shape, patch, value_bits)
 
 
+class PSSARowCounters(NamedTuple):
+    """Per-batch-row integer PSSA counters (slot serving).
+
+    ``nnz`` / ``ones_xor`` are (B,) int64: each row's surviving-score
+    count and patch-XOR bitmap population, heads and query rows folded.
+    Summing any subset of rows gives :func:`compress_stats`' folded
+    counters for that subset exactly, so a slot runtime can scatter rows
+    into per-iteration buckets and still assemble bit-equal byte stats.
+    """
+    nnz: torch.Tensor
+    ones_xor: torch.Tensor
+
+
+def row_counters(sas: torch.Tensor, patch: int,
+                 threshold=DEFAULT_THRESHOLD) -> PSSARowCounters:
+    """Per-row counters of one SAS (B, ..., Tq, Tk): the same pruning,
+    bitmap and XOR arithmetic as :func:`compress_stats`, reduced over
+    every axis but the leading batch axis."""
+    bm = bitmap(prune(sas, threshold))
+    tk = bm.shape[-1]
+    if tk % patch:
+        raise ValueError(f"key length {tk} is not a multiple of patch {patch}")
+    r = bm.reshape(*bm.shape[:-1], tk // patch, patch)
+    nnz = bm.sum(dim=tuple(range(1, bm.ndim)), dtype=torch.int64)
+    first = r[..., 0, :].sum(dim=tuple(range(1, bm.ndim)), dtype=torch.int64)
+    delta = torch.logical_xor(r[..., 1:, :], r[..., :-1, :]).sum(
+        dim=tuple(range(1, r.ndim)), dtype=torch.int64)
+    return PSSARowCounters(nnz=nnz, ones_xor=first + delta)
+
+
 def compress_stats_reference(sas: torch.Tensor, patch: int,
                              threshold=DEFAULT_THRESHOLD,
                              value_bits: int = 12) -> PSSAStats:

@@ -21,6 +21,14 @@ class TIPSResult(NamedTuple):
     low_precision_ratio: torch.Tensor  # float32 scalar in [0, 1]
 
 
+class TIPSRowCounters(NamedTuple):
+    """Per-batch-row TIPS accounting (slot serving): ``important`` (B,)
+    int64 counts each row's spotted-important tokens (before the
+    tips-active OR: the ledger applies the activity schedule per
+    iteration)."""
+    important: torch.Tensor
+
+
 def apply_precision_mask(x: torch.Tensor, important: torch.Tensor,
                          active=True) -> torch.Tensor:
     """Fake-quant an activation tensor per the TIPS mask.

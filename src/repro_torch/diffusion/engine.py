@@ -1,10 +1,19 @@
-"""One-shot diffusion engine (port of ``repro.diffusion.engine``, one-shot
-``generate`` only).
+"""Diffusion engine (port of ``repro.diffusion.engine``: one-shot
+``generate`` and the slot runtime).
 
-encode -> the fused-CFG denoising loop (``sampler.sample_scan``, or
-``sampler.sample_scan_reuse`` from an all-invalid cache when
-``cfg.unet.reuse_policy`` is enabled) -> decode, with the stats trajectory
-stacked along a leading ``num_steps`` axis.
+``generate``: encode -> the fused-CFG denoising loop
+(``sampler.sample_scan``, or ``sampler.sample_scan_reuse`` from an
+all-invalid cache when ``cfg.unet.reuse_policy`` is enabled) -> decode,
+with the stats trajectory stacked along a leading ``num_steps`` axis.  A
+``SamplerPolicy`` (and a bank holding it) swaps the solver and budget.
+
+The slot runtime (continuous batching, DESIGN.md §8 and §10):
+``init_slots`` builds an S-row ``SlotState``; ``admit`` puts a request in
+a free row between steps; ``slot_step`` advances every active row by ONE
+iteration, each at its own step (and, under a bank, its own policy), and
+scatters the rows' integer counters into the state's ``LedgerAccum``;
+``finished_slots`` / ``decode_slots`` / ``retire`` take finished rows out.
+
 PyTorch runs eagerly, so there is no executable cache; the wall time of a
 call is taken after ``torch.cuda.synchronize()`` on the card.
 """
@@ -16,10 +25,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch.diffusion import solvers as solvers_mod
 from repro_torch.diffusion.pipeline import (PipelineConfig,
                                             _default_generator, init_params)
 from repro_torch.core.reuse import reuse_cache_zeros
-from repro_torch.diffusion.sampler import sample_scan, sample_scan_reuse
+from repro_torch.diffusion.sampler import (denoise_step, sample_scan,
+                                           sample_scan_reuse)
+from repro_torch.diffusion.stats import LedgerAccum, attn_layer_order
 from repro_torch.diffusion.text_encoder import encode_text
 from repro_torch.diffusion.unet import unet_forward
 from repro_torch.diffusion.vae import decode
@@ -32,6 +44,40 @@ class EngineOutput:
     images: torch.Tensor         # (B, 8S, 8S, 3) in [-1, 1]
     latents: torch.Tensor        # (B, S, S, 4) final denoised latents
     stats: object                # UNetStats, leaves (num_steps, ...)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotState:
+    """The in-flight batch of the slot runtime, one row per slot.
+
+    ``step_idx`` is the next iteration each row runs; ``active`` marks the
+    occupied rows (the others still run through the fixed-shape UNet call,
+    their results discarded and their counters masked).  ``accum`` holds
+    the integer ledger buckets.  ``uncond_context`` is None when the
+    config disables CFG.  Under a sampler ``bank``, ``policy_id`` selects
+    each row's policy and ``solver_hist`` (S, H, s, s, C) carries the
+    multistep history; the buckets are then per (policy, step).  The state
+    is functional: every method returns a new one.
+    """
+    latents: torch.Tensor                     # (S, s, s, C)
+    context: torch.Tensor                     # (S, Tk, d) encoded cond text
+    uncond_context: Optional[torch.Tensor]    # (S, Tk, d) or None
+    step_idx: torch.Tensor                    # (S,) int64
+    active: torch.Tensor                      # (S,) bool
+    accum: LedgerAccum
+    policy_id: Optional[torch.Tensor] = None  # (S,) int64 under a bank
+    solver_hist: Optional[torch.Tensor] = None
+    bank: Optional[tuple] = None
+
+    @property
+    def num_slots(self) -> int:
+        return int(self.step_idx.shape[0])
+
+
+def _set_row(x: torch.Tensor, row: int, value) -> torch.Tensor:
+    out = x.clone()
+    out[row] = value
+    return out
 
 
 def _check_cfg_inputs(guidance_scale: float, uncond_tokens) -> bool:
@@ -84,6 +130,16 @@ class DiffusionEngine:
         self.vae_params = params["vae"]
         self.last_wall_s: Optional[float] = None
 
+    def _encode(self, tokens) -> torch.Tensor:
+        """(B, text_len) tokens -> (B, text_len, d) context, one row at a
+        time: the card's GEMMs are picked by their row count, so a prompt
+        encoded beside others can get other bits than alone, and a request
+        must get the same context from ``generate`` as from ``admit``."""
+        tokens = torch.as_tensor(tokens, device=self.device)
+        return torch.cat([encode_text(self.text_params, tokens[i:i + 1],
+                                      self.cfg.text)
+                          for i in range(tokens.shape[0])])
+
     def _unet_apply(self, lat, tvec, ctx, active, **kw):
         return unet_forward(self.unet_params, lat, tvec, ctx, self.cfg.unet,
                             tips_active=active, **kw)
@@ -95,14 +151,32 @@ class DiffusionEngine:
 
     @torch.no_grad()
     def generate(self, prompt_tokens, generator=None, uncond_tokens=None,
-                 latents=None, stats_rows=None) -> EngineOutput:
+                 latents=None, stats_rows=None, sampler_policy=None,
+                 sampler_bank=None) -> EngineOutput:
         """(B, text_len) tokens -> EngineOutput.
 
         ``latents`` (drawn from ``generator`` unless given) start the loop;
         ``stats_rows`` restricts the PSSA/TIPS accounting to the first N
         rows.  Wall seconds of the call land in ``self.last_wall_s``.
+
+        ``sampler_policy`` (a ``solvers.SamplerPolicy``) swaps the solver
+        and step budget; the stats then carry ``policy.num_steps`` steps.
+        ``sampler_bank`` (a bank holding the policy) runs every row under
+        the full bank pinned to the policy's index: the one-shot oracle of
+        a slot row served under that bank (DESIGN.md §10).
         """
         cfg = self.cfg
+        if sampler_bank is not None:
+            sampler_bank = solvers_mod.as_bank(sampler_bank)
+            if sampler_policy not in sampler_bank:
+                raise ValueError(
+                    f"sampler_policy {sampler_policy and sampler_policy.key()}"
+                    f" is not an entry of sampler_bank "
+                    f"{[p.key() for p in sampler_bank]}")
+        if sampler_policy is not None and cfg.unet.reuse_policy.enabled:
+            raise NotImplementedError(
+                "sampler policies under temporal reuse are not ported yet "
+                "(ROADMAP Queue 1 item 2)")
         use_cfg = _check_cfg_inputs(cfg.ddim.guidance_scale, uncond_tokens)
         prompt_tokens = torch.as_tensor(prompt_tokens, device=self.device)
         if latents is None:
@@ -110,11 +184,8 @@ class DiffusionEngine:
         latents = torch.as_tensor(latents, dtype=torch.float32,
                                   device=self.device)
         t0 = time.perf_counter()
-        context = encode_text(self.text_params, prompt_tokens, cfg.text)
-        uncond = None
-        if use_cfg:
-            uncond = encode_text(self.text_params, torch.as_tensor(
-                uncond_tokens, device=self.device), cfg.text)
+        context = self._encode(prompt_tokens)
+        uncond = self._encode(uncond_tokens) if use_cfg else None
         if cfg.unet.reuse_policy.enabled:
             cache = reuse_cache_zeros(cfg.unet, latents.shape[0],
                                       use_cfg=use_cfg, device=self.device)
@@ -124,9 +195,220 @@ class DiffusionEngine:
         else:
             latents, stats = sample_scan(self._unet_apply, latents, context,
                                          uncond, cfg.ddim,
-                                         stats_rows=stats_rows)
+                                         stats_rows=stats_rows,
+                                         sampler_policy=sampler_policy,
+                                         sampler_bank=sampler_bank)
         images = decode(self.vae_params, latents, cfg.vae)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.last_wall_s = time.perf_counter() - t0
         return EngineOutput(images=images, latents=latents, stats=stats)
+
+    def warmup(self, batch: int, use_cfg: Optional[bool] = None,
+               stats_rows: Optional[int] = None, sampler_policy=None,
+               sampler_bank=None) -> float:
+        """Run (and discard) one call of the given shape: the card's
+        lazily built kernels and cuDNN plans are made off the clock.
+
+        ``use_cfg`` defaults to what the config demands; forcing it
+        against the config raises as ``generate`` does.  Returns the wall
+        seconds of the call.
+        """
+        cfg = self.cfg
+        if use_cfg is None:
+            use_cfg = cfg.ddim.guidance_scale != 1.0
+        toks = torch.zeros((batch, cfg.text.max_len), dtype=torch.int32,
+                           device=self.device)
+        t0 = time.perf_counter()
+        self.generate(toks, uncond_tokens=toks.clone() if use_cfg else None,
+                      generator=torch.Generator(
+                          device=self.device).manual_seed(0),
+                      stats_rows=stats_rows, sampler_policy=sampler_policy,
+                      sampler_bank=sampler_bank)
+        return time.perf_counter() - t0
+
+    # ------------------------------------------------------------------
+    # Slot-state mode: continuous batching (DESIGN.md §8)
+    # ------------------------------------------------------------------
+    def init_slots(self, num_slots: int, bank=None) -> SlotState:
+        """Fresh all-inactive slot state of ``num_slots`` rows.
+
+        ``bank`` (a tuple of ``solvers.SamplerPolicy``) lets requests of
+        different policies share one ``slot_step``: each row's policy is
+        its ``policy_index`` at admission, the multistep history rides the
+        state, and the ledger buckets are per (policy, step) -- bucket
+        ``p * N + i`` (N = the bank's largest budget) holds policy ``p``'s
+        step-``i`` counters (``pipeline.energy_report_banked``).
+        """
+        if num_slots < 1:
+            raise ValueError(f"num_slots={num_slots} must be >= 1")
+        cfg = self.cfg
+        if cfg.unet.reuse_policy.enabled:
+            raise NotImplementedError(
+                "slot serving under temporal reuse (the cache threaded "
+                "through the slots, invalidated on admit) is not ported "
+                "yet: ROADMAP Queue 1 item 2")
+        s, c = cfg.unet.latent_size, cfg.unet.in_channels
+        ctx_shape = (num_slots, cfg.text.max_len, cfg.text.d_model)
+        use_cfg = cfg.ddim.guidance_scale != 1.0
+        dev = self.device
+        if bank is not None:
+            bank = solvers_mod.as_bank(bank)
+        num_buckets = (cfg.ddim.num_inference_steps if bank is None
+                       else len(bank) * solvers_mod.bank_max_steps(bank))
+        return SlotState(
+            latents=torch.zeros((num_slots, s, s, c), device=dev),
+            context=torch.zeros(ctx_shape, device=dev),
+            uncond_context=(torch.zeros(ctx_shape, device=dev) if use_cfg
+                            else None),
+            step_idx=torch.zeros((num_slots,), dtype=torch.int64,
+                                 device=dev),
+            active=torch.zeros((num_slots,), dtype=torch.bool, device=dev),
+            accum=LedgerAccum.zeros(num_buckets,
+                                    len(attn_layer_order(cfg.unet)), dev),
+            policy_id=(torch.zeros((num_slots,), dtype=torch.int64,
+                                   device=dev) if bank is not None else None),
+            solver_hist=(solvers_mod.init_history(bank, num_slots, (s, s, c),
+                                                  dev)
+                         if bank is not None else None),
+            bank=bank)
+
+    @torch.no_grad()
+    def admit(self, state: SlotState, slot: int, prompt_tokens,
+              generator=None, uncond_tokens=None, latents=None,
+              policy_index: int = 0) -> SlotState:
+        """Put a new request in row ``slot`` (between steps).
+
+        ``prompt_tokens`` is (1, text_len); the initial latent row is drawn
+        from ``generator`` unless ``latents`` (1, s, s, C) is given.  The
+        CFG contract of ``generate`` applies, and the state must have been
+        built for the same CFG mode.  ``policy_index`` picks the request's
+        policy from the state's bank; admission zeroes the row's solver
+        history, so a multistep solver starts as a fresh one-shot run.
+        """
+        use_cfg = _check_cfg_inputs(self.cfg.ddim.guidance_scale,
+                                    uncond_tokens)
+        if use_cfg != (state.uncond_context is not None):
+            raise ValueError(
+                "slot state CFG mode does not match the admit call — "
+                "rebuild the state with init_slots() for this config")
+        if state.bank is None:
+            if policy_index != 0:
+                raise ValueError(
+                    f"policy_index={policy_index} on a bank-less slot "
+                    f"state — build the state with init_slots(bank=...)")
+        elif not 0 <= policy_index < len(state.bank):
+            raise ValueError(
+                f"policy_index={policy_index} outside the state's bank "
+                f"of {len(state.bank)} policies")
+        if not 0 <= slot < state.num_slots:
+            raise ValueError(f"slot={slot} outside [0, {state.num_slots})")
+        ctx = self._encode(prompt_tokens)
+        if latents is None:
+            latents = self.init_latents(1, generator)
+        lat = torch.as_tensor(latents, dtype=torch.float32,
+                              device=self.device)
+        new = dataclasses.replace(
+            state,
+            latents=_set_row(state.latents, slot, lat[0]),
+            context=_set_row(state.context, slot, ctx[0]),
+            step_idx=_set_row(state.step_idx, slot, 0),
+            active=_set_row(state.active, slot, True))
+        if use_cfg:
+            un = self._encode(uncond_tokens)
+            new = dataclasses.replace(
+                new, uncond_context=_set_row(state.uncond_context, slot,
+                                             un[0]))
+        if state.bank is not None:
+            new = dataclasses.replace(
+                new, policy_id=_set_row(state.policy_id, slot, policy_index),
+                solver_hist=_set_row(state.solver_hist, slot, 0.0))
+        return new
+
+    @torch.no_grad()
+    def slot_step(self, state: SlotState) -> SlotState:
+        """Advance every active row by ONE denoising iteration.
+
+        The rows' per-row counters go into ``state.accum``: bucket
+        ``step`` (or ``policy * N + step`` under a bank), masked by
+        ``active`` before the add.  A banked row at or past its budget
+        (a finished slot not yet retired) maps out of range and is
+        dropped, so it can never bleed into the next policy's buckets.
+        Wall seconds land in ``self.last_wall_s``.
+        """
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        if state.bank is not None:
+            lat, stats, _, hist = denoise_step(
+                self._unet_apply, state.latents, state.context,
+                state.uncond_context, state.step_idx, cfg.ddim,
+                active=state.active, row_stats=True, bank=state.bank,
+                policy_id=state.policy_id, solver_hist=state.solver_hist)
+            n_max = solvers_mod.bank_max_steps(state.bank)
+            budgets = solvers_mod.solver_tables(
+                state.bank, cfg.ddim, self.device).budget[state.policy_id]
+            bucket = torch.where(state.step_idx < budgets,
+                                 state.policy_id * n_max + state.step_idx,
+                                 len(state.bank) * n_max)
+        else:
+            lat, stats = denoise_step(
+                self._unet_apply, state.latents, state.context,
+                state.uncond_context, state.step_idx, cfg.ddim,
+                active=state.active, row_stats=True)
+            hist, bucket = None, state.step_idx
+        new = dataclasses.replace(
+            state, latents=lat, solver_hist=hist,
+            accum=state.accum.scatter(bucket, state.active, stats),
+            step_idx=state.step_idx + state.active.to(torch.int64))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.last_wall_s = time.perf_counter() - t0
+        return new
+
+    def finished_slots(self, state: SlotState) -> list:
+        """Active rows whose step counter has run off THEIR schedule (a
+        banked row against its own policy's budget)."""
+        idx = state.step_idx.tolist()
+        act = state.active.tolist()
+        if state.bank is not None:
+            budgets = [state.bank[p].num_steps
+                       for p in state.policy_id.tolist()]
+        else:
+            budgets = [self.cfg.ddim.num_inference_steps] * len(idx)
+        return [i for i in range(len(idx)) if act[i] and idx[i] >= budgets[i]]
+
+    @torch.no_grad()
+    def decode_slots(self, state: SlotState, slots=None) -> torch.Tensor:
+        """VAE-decode slot latents: the whole buffer in one batch-S call
+        (``slots=None``), or the named rows in power-of-two chunks (a
+        retirement usually frees one or two rows; chunking bounds the
+        decode shapes to log2(S) + 1)."""
+        if slots is None:
+            return decode(self.vae_params, state.latents, self.cfg.vae)
+        slots = list(slots)
+        if not slots:
+            raise ValueError(
+                "decode_slots: empty slot list — guard on "
+                "finished_slots() (or pass slots=None for the whole "
+                "buffer)")
+        out, i = [], 0
+        while i < len(slots):
+            c = 1 << ((len(slots) - i).bit_length() - 1)
+            sel = torch.tensor(slots[i:i + c], device=self.device)
+            out.append(decode(self.vae_params, state.latents[sel],
+                              self.cfg.vae))
+            i += c
+        return out[0] if len(out) == 1 else torch.cat(out, dim=0)
+
+    def decode_preview(self, state: SlotState, slots) -> torch.Tensor:
+        """Decode IN-FLIGHT rows at whatever step each has reached, through
+        the same chunked decode as ``decode_slots`` (a preview of a row
+        that just finished equals its final image)."""
+        return self.decode_slots(state, list(slots))
+
+    def retire(self, state: SlotState, slots) -> SlotState:
+        """Free finished rows (after decoding); they become admissible."""
+        active = state.active.clone()
+        active[torch.tensor(list(slots), dtype=torch.int64,
+                            device=self.device)] = False
+        return dataclasses.replace(state, active=active)

@@ -4,18 +4,25 @@
 Stages: text encoding -> denoising loop -> VAE decode.  The run measures
 per-resolution PSSA compression ratios and per-iteration TIPS
 low-precision ratios, which drive the full-geometry analytic ledger to the
-paper's headline numbers (EMA GB/iter, mJ/iter).
+paper's headline numbers (EMA GB/iter, mJ/iter).  Slot serving reports
+from the integer buckets of a ``stats.LedgerAccum`` instead
+(``energy_report_from_accum``, per policy ``energy_report_banked``),
+through the same term assembly, so both give the same headline for the
+same requests.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
-from repro_torch.core import energy
+from repro_torch.core import energy, pssa
 from repro_torch.diffusion import ledger as L
+from repro_torch.diffusion import solvers as solvers_mod
 from repro_torch.diffusion.sampler import DDIMConfig, sample
-from repro_torch.diffusion.stats import UNetStats, coerce_per_step_stats
+from repro_torch.diffusion.stats import (UNetStats, attn_layer_order,
+                                         coerce_per_step_stats)
 from repro_torch.diffusion.text_encoder import (TextEncoderConfig,
                                                 encode_text,
                                                 init_text_encoder_params)
@@ -133,28 +140,45 @@ def _tips_ratio_terms(stats_one_iter) -> tuple:
 
 
 def energy_report(cfg: PipelineConfig, stats_per_iter,
-                  full_geometry: bool = True) -> "PipelineEnergyReport":
-    """Headline numbers (Table I) from one run's stats trajectory."""
+                  full_geometry: bool = True,
+                  sampler_policy=None) -> "PipelineEnergyReport":
+    """Headline numbers (Table I) from one run's stats trajectory.
+
+    ``sampler_policy``: the ``solvers.SamplerPolicy`` the run used, if not
+    the config's schedule (its budget and TIPS window then apply).
+    """
     return energy_report_multi(cfg, [stats_per_iter],
-                               full_geometry=full_geometry)
+                               full_geometry=full_geometry,
+                               sampler_policy=sampler_policy)
 
 
-def energy_report_multi(cfg: PipelineConfig, stats_per_batch,
-                        full_geometry: bool = True
-                        ) -> "PipelineEnergyReport":
-    """Aggregate report across several calls: per iteration, SAS byte terms
-    and row-weighted TIPS terms are summed before dividing."""
+def _fetch_stats(stats_per_batch) -> list:
+    """Host copies of each call's trajectory, as per-iteration lists."""
     fetched = []
     for s in stats_per_batch:
         s = s.cpu() if isinstance(s, UNetStats) else [st.cpu() for st in s]
         fetched.append(coerce_per_step_stats(s))
+    return fetched
+
+
+def energy_report_multi(cfg: PipelineConfig, stats_per_batch,
+                        full_geometry: bool = True,
+                        sampler_policy=None) -> "PipelineEnergyReport":
+    """Aggregate report across several calls: per iteration, SAS byte terms
+    and row-weighted TIPS terms are summed before dividing.  With
+    ``sampler_policy`` every trajectory comes from runs of that policy."""
+    fetched = _fetch_stats(stats_per_batch)
     if not fetched:
         raise ValueError("stats_per_batch is empty")
-    n = cfg.ddim.num_inference_steps
+    n = (cfg.ddim.num_inference_steps if sampler_policy is None
+         else sampler_policy.num_steps)
+    tips_flags = (None if sampler_policy is None else
+                  solvers_mod.tips_active_schedule(sampler_policy, cfg.ddim))
     for s in fetched:
         if len(s) != n:
-            raise ValueError(f"stats trajectory has {len(s)} iterations, "
-                             f"config says {n}")
+            raise ValueError(
+                f"stats trajectory has {len(s)} iterations, "
+                f"{'policy' if sampler_policy else 'config'} says {n}")
     per_iter_terms = []
     for i in range(n):
         sas_terms: dict = {}
@@ -167,7 +191,22 @@ def energy_report_multi(cfg: PipelineConfig, stats_per_batch,
             tnum, tden = tnum + num, tden + den
         per_iter_terms.append((sas_terms, (tnum, tden)))
     return _report_from_terms(cfg, per_iter_terms,
-                              full_geometry=full_geometry)
+                              full_geometry=full_geometry,
+                              num_steps=n, tips_flags=tips_flags)
+
+
+def aggregated_tips_ratios_per_iter(cfg: PipelineConfig,
+                                    stats_per_batch) -> list:
+    """Row-weighted per-iteration TIPS low-precision ratios across calls."""
+    fetched = _fetch_stats(stats_per_batch)
+    out = []
+    for i in range(cfg.ddim.num_inference_steps):
+        num = den = 0.0
+        for s in fetched:
+            a, b = _tips_ratio_terms(s[i])
+            num, den = num + a, den + b
+        out.append(num / max(den, 1e-12))
+    return out
 
 
 def aggregated_reuse_ratios_per_iter(cfg: PipelineConfig,
@@ -189,10 +228,19 @@ def aggregated_reuse_ratios_per_iter(cfg: PipelineConfig,
 
 
 def _report_from_terms(cfg: PipelineConfig, per_iter_terms,
-                       full_geometry: bool = True
-                       ) -> "PipelineEnergyReport":
-    """Per-iteration aggregated terms -> the full-geometry ledger report."""
-    n = cfg.ddim.num_inference_steps
+                       full_geometry: bool = True,
+                       num_steps: Optional[int] = None,
+                       tips_flags=None) -> "PipelineEnergyReport":
+    """Per-iteration aggregated terms -> the full-geometry ledger report.
+
+    ``per_iter_terms``: one ``(sas_terms, (tips_num, tips_den))`` per
+    iteration, ``sas_terms`` mapping resolution to summed (compressed,
+    baseline) bytes: the shared tail of the per-call stats path and the
+    accumulator path.  ``num_steps`` / ``tips_flags``: a policy's budget
+    and per-iteration TIPS activity (default: the config's schedule and
+    ``i < tips_active_iters``); ``cfg.unet.tips`` still gates both.
+    """
+    n = cfg.ddim.num_inference_steps if num_steps is None else num_steps
     if len(per_iter_terms) != n:
         raise ValueError(
             f"{len(per_iter_terms)} iteration terms, schedule says {n}")
@@ -207,9 +255,11 @@ def _report_from_terms(cfg: PipelineConfig, per_iter_terms,
     for i, (sas_terms, (tnum, tden)) in enumerate(per_iter_terms):
         sas_ratio = {res: num / max(den, 1e-12)
                      for res, (num, den) in sas_terms.items()}
+        tips_on = (i < cfg.ddim.tips_active_iters if tips_flags is None
+                   else bool(tips_flags[i]))
         opts_per_iter.append(L.LedgerOptions(
             pssa=cfg.unet.pssa,
-            tips=cfg.unet.tips and i < cfg.ddim.tips_active_iters,
+            tips=cfg.unet.tips and tips_on,
             sas_ratio=remap(sas_ratio),
             tips_low_ratio=tnum / max(tden, 1e-12),
             tips_mid=cfg.unet.precision.ffn_mid,
@@ -220,6 +270,154 @@ def _report_from_terms(cfg: PipelineConfig, per_iter_terms,
         baseline=L.generation_report(geom, baseline_opts),
         iterations=n,
     )
+
+
+def ledger_terms_from_accum(cfg: PipelineConfig, accum) -> list:
+    """Per-iteration ledger terms from a slot-serving ``LedgerAccum``.
+
+    The same (SAS byte, TIPS workload) terms :func:`energy_report_multi`
+    derives from per-call stats, through the same byte arithmetic
+    (``pssa.stats_from_counters``), so slot count, admission order and
+    occupancy cannot move a term.
+    """
+    planes = _fetch_accum(accum)
+    n = cfg.ddim.num_inference_steps
+    want = (n, len(attn_layer_order(cfg.unet)))
+    if tuple(planes[0].shape) != want:
+        raise ValueError(f"accumulator shape {tuple(planes[0].shape)} does "
+                         f"not match {want}")
+    return _terms_from_counters(cfg, *planes, 0, n)
+
+
+def _fetch_accum(accum):
+    """One host copy of the four SAS/TIPS counter planes."""
+    return tuple(x.cpu() for x in (accum.nnz, accum.ones_xor, accum.imp,
+                                   accum.rows))
+
+
+def _terms_from_counters(cfg: PipelineConfig, nnz, ones_xor, imp, rows,
+                         start: int, n: int) -> list:
+    """Buckets ``[start, start + n)`` -> per-iteration ledger terms (the
+    legacy accumulator at ``start = 0``, a banked policy's block at
+    ``start = policy_index * bank_max_steps``)."""
+    layers = attn_layer_order(cfg.unet)
+    heads = cfg.unet.num_heads
+    per_iter_terms = []
+    for i in range(start, start + n):
+        sas_terms: dict = {}
+        tnum = tden = 0.0
+        r = int(rows[i])
+        for li, lk in enumerate(layers):
+            if r == 0:
+                continue                  # nothing accounted yet
+            res = lk.resolution
+            tq = res * res
+            st = pssa.stats_from_counters(
+                nnz[i, li], ones_xor[i, li], lead=r * heads, tq=tq, tk=tq,
+                patch=cfg.unet.patch_size(res))
+            num, den = sas_terms.get(res, (0.0, 0.0))
+            sas_terms[res] = (num + float(st.bytes_pssa_total),
+                              den + float(st.bytes_baseline))
+            # per call the one-shot path sums (1 - imp_c/(rows_c*Tq)) *
+            # Tq * rows_c; with exact per-call folds (power-of-two
+            # rows_c * Tq) that is the INTEGER Tq*rows - imp
+            tnum += float(tq * r - int(imp[i, li]))
+            tden += float(tq * r)
+        per_iter_terms.append((sas_terms, (tnum, tden)))
+    return per_iter_terms
+
+
+def banked_ledger_terms(cfg: PipelineConfig, accum, bank) -> list:
+    """Per-policy per-iteration ledger terms from a BANKED ``LedgerAccum``:
+    policy ``p``'s trajectory is the bucket block ``[p*N, p*N +
+    budget_p)`` (N = the bank's largest budget), in bank order."""
+    bank = solvers_mod.as_bank(bank)
+    planes = _fetch_accum(accum)
+    n_max = solvers_mod.bank_max_steps(bank)
+    want = (len(bank) * n_max, len(attn_layer_order(cfg.unet)))
+    if tuple(planes[0].shape) != want:
+        raise ValueError(f"accumulator shape {tuple(planes[0].shape)} does "
+                         f"not match banked layout {want}")
+    return [_terms_from_counters(cfg, *planes, p * n_max, pol.num_steps)
+            for p, pol in enumerate(bank)]
+
+
+def energy_report_banked(cfg: PipelineConfig, accum, bank,
+                         full_geometry: bool = True
+                         ) -> "BankedEnergyReport":
+    """Per-policy + aggregate energy report for a banked serving run.
+
+    Each policy's buckets go through the same term assembly and ledger as
+    a run of that policy alone, so every per-policy headline equals
+    serving its requests one-shot.  A policy whose step-0 bucket saw no
+    row reports ``images == 0`` and no report.
+    """
+    bank = solvers_mod.as_bank(bank)
+    terms = banked_ledger_terms(cfg, accum, bank)
+    rows = accum.rows.cpu()
+    n_max = solvers_mod.bank_max_steps(bank)
+    entries = []
+    for p, (pol, t) in enumerate(zip(bank, terms)):
+        # every admitted request visits its step-0 bucket once
+        images = int(rows[p * n_max])
+        report = None
+        if images > 0:
+            report = _report_from_terms(
+                cfg, t, full_geometry=full_geometry,
+                num_steps=pol.num_steps,
+                tips_flags=solvers_mod.tips_active_schedule(pol, cfg.ddim))
+        entries.append(BankedPolicyReport(policy=pol, images=images,
+                                          report=report))
+    return BankedEnergyReport(entries=tuple(entries))
+
+
+def energy_report_from_accum(cfg: PipelineConfig, accum,
+                             full_geometry: bool = True
+                             ) -> "PipelineEnergyReport":
+    """Energy report for a drained slot-serving run (DESIGN.md §8): equal
+    to :func:`energy_report_multi` over the same requests served one-shot
+    whenever the per-call float folds are exact (power-of-two accounted
+    rows per call)."""
+    return _report_from_terms(cfg, ledger_terms_from_accum(cfg, accum),
+                              full_geometry=full_geometry)
+
+
+def phase_breakdown_from_accum(cfg: PipelineConfig, accum, bank) -> list:
+    """Per-policy, per-phase realized ratios from a banked accumulator:
+    each policy's terms grouped by ``solvers.phase_index_schedule`` and
+    summed within the phase before dividing.  Returns, per bank entry,
+    ``{"policy", "phases": [{"phase", "iters", "sas_ratio",
+    "tips_low_ratio"}, ...]}``."""
+    out = []
+    bank = solvers_mod.as_bank(bank)
+    for pol, terms in zip(bank, banked_ledger_terms(cfg, accum, bank)):
+        phase_ids = solvers_mod.phase_index_schedule(pol)
+        groups: dict = {}
+        for i, (sas_terms, (tnum, tden)) in enumerate(terms):
+            g = groups.setdefault(phase_ids[i], [0, {}, 0.0, 0.0])
+            g[0] += 1
+            for res, (num, den) in sas_terms.items():
+                a, b = g[1].get(res, (0.0, 0.0))
+                g[1][res] = (a + num, b + den)
+            g[2] += tnum
+            g[3] += tden
+        phases = []
+        for ph in sorted(groups):
+            iters, sas, tnum, tden = groups[ph]
+            snum = sum(n for n, _ in sas.values())
+            sden = sum(d for _, d in sas.values())
+            phases.append({
+                "phase": ph, "iters": iters,
+                "sas_ratio": snum / max(sden, 1e-12),
+                "tips_low_ratio": tnum / max(tden, 1e-12)})
+        out.append({"policy": pol.key(), "phases": phases})
+    return out
+
+
+def tips_ratios_from_accum(cfg: PipelineConfig, accum) -> list:
+    """Per-iteration realized INT6 row fraction from the accumulator."""
+    return [num / max(den, 1e-12)
+            for _, (num, den) in ledger_terms_from_accum(cfg, accum)]
 
 
 @dataclasses.dataclass
@@ -262,4 +460,53 @@ class PipelineEnergyReport:
                        1e-12)),
             "mj_per_iter_compute": self.mj_per_iter_compute,
             "mj_per_iter_with_ema": self.mj_per_iter_with_ema,
+        }
+
+
+@dataclasses.dataclass
+class BankedPolicyReport:
+    """One bank entry's share of a banked serving run: ``images`` ran
+    under ``policy`` (its step-0 bucket's row count); ``report`` is None
+    when it served nothing."""
+    policy: object                            # solvers.SamplerPolicy
+    images: int
+    report: Optional[PipelineEnergyReport]
+
+    @property
+    def mj_per_image(self) -> float:
+        """Modeled energy per image at THIS policy's step budget."""
+        if self.report is None:
+            return 0.0
+        return self.report.mj_per_iter_with_ema * self.policy.num_steps
+
+
+@dataclasses.dataclass
+class BankedEnergyReport:
+    """Per-policy energy reports + the images-weighted aggregate."""
+    entries: tuple                            # of BankedPolicyReport
+
+    @property
+    def images(self) -> int:
+        return sum(e.images for e in self.entries)
+
+    @property
+    def mj_per_image(self) -> float:
+        """Images-weighted mean energy per image across the bank."""
+        total = self.images
+        if total == 0:
+            return 0.0
+        return sum(e.mj_per_image * e.images for e in self.entries) / total
+
+    def summary(self) -> dict:
+        return {
+            "images": self.images,
+            "mj_per_image_weighted": self.mj_per_image,
+            "per_policy": [
+                {"policy": e.policy.key(),
+                 "tier": e.policy.name or None,
+                 "num_steps": e.policy.num_steps,
+                 "images": e.images,
+                 "mj_per_image": e.mj_per_image,
+                 **({} if e.report is None else e.report.summary())}
+                for e in self.entries],
         }

@@ -9,6 +9,10 @@ iterations.
                    cond + uncond fused into ONE UNet call per step with the
                    shared prefix run once (``cfg_dup``); returns the stats
                    trajectory stacked along a leading ``num_steps`` axis.
+                   A ``SamplerPolicy`` (and bank) swaps in the per-row
+                   solvers of ``diffusion.solvers``.
+``denoise_step`` — one step at per-row step indices: the loop body, and
+                   the slot runtime's step (``DiffusionEngine.slot_step``).
 ``sample_scan_reuse`` — the same loop with the temporal-reuse cache,
                    carried from step to step (temporal mode) or read from
                    a base request's recorded per-step caches (edit mode).
@@ -20,6 +24,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.tips import TIPS_ACTIVE_ITERS
+from repro_torch.diffusion import solvers as solvers_mod
 from repro_torch.diffusion.stats import UNetStats
 
 
@@ -109,9 +114,17 @@ def sample(unet_apply, latents, context, uncond_context, cfg: DDIMConfig,
     return latents, all_stats
 
 
-def denoise_step(unet_apply, latents, context, uncond_context, step_idx: int,
-                 cfg: DDIMConfig, stats_rows=None, reuse_cache=None):
-    """ONE denoising update with every row at iteration ``step_idx``.
+def denoise_step(unet_apply, latents, context, uncond_context, step_idx,
+                 cfg: DDIMConfig, stats_rows=None, reuse_cache=None,
+                 active=None, row_stats: bool = False, bank=None,
+                 policy_id=None, solver_hist=None):
+    """ONE denoising update at PER-ROW step indices.
+
+    ``step_idx`` is a (B,) integer tensor (an int is broadcast): each
+    row's iteration.  The alphas and the TIPS activity flag are gathered
+    per row, so a slot runtime can run rows at different steps in one
+    batched UNet call; with every row at one index the arithmetic is the
+    one-shot loop's, op for op.
 
     Under CFG the cond and uncond UNet evaluations are one batched call with
     the shared prefix deduplicated (``cfg_dup``), and the PSSA/TIPS stats
@@ -120,16 +133,55 @@ def denoise_step(unet_apply, latents, context, uncond_context, step_idx: int,
     ``reuse_cache`` (a ``core.reuse.ReuseCache``) is passed to the UNet,
     which then returns the new cache, and so does this function:
     ``(latents, stats, new_cache)``.  Without it: ``(latents, stats)``.
+
+    ``active`` (B,) bool gates slot serving: inactive rows keep their
+    latents (and solver history); their UNet work is discarded and the
+    CALLER masks their stats (``LedgerAccum.scatter``).  ``row_stats``
+    asks the UNet for per-row counters (``SlotStats``).
+
+    ``bank`` (a tuple of ``solvers.SamplerPolicy``) switches to the per-row
+    solver path: ``policy_id`` (B,) selects each row's policy, step
+    indices clip to per-row budgets, timesteps, TIPS activity and solver
+    coefficients are gathered from the bank's ``SolverTables``, the phase
+    threshold scales (when the bank schedules any) go to the UNet as
+    ``overrides``, and multistep history rides ``solver_hist`` (B, H, ...).
+    The banked return is always ``(latents, stats, new_cache_or_None,
+    new_hist)``.
     """
-    acp = alphas_cumprod(cfg, latents.device)
-    ts = timestep_schedule(cfg, latents.device)
+    dev = latents.device
+    acp = alphas_cumprod(cfg, dev)
+    ts = timestep_schedule(cfg, dev)
     step = cfg.num_train_steps // cfg.num_inference_steps
     b = latents.shape[0]
-    idx = torch.full((b,), min(max(step_idx, 0), cfg.num_inference_steps - 1),
-                     dtype=torch.int64, device=latents.device)
-    t = ts[idx]                                   # (B,) per-row timesteps
-    tips_vec = idx < cfg.tips_active_iters        # (B,) per-row TIPS flag
+    step_idx = torch.as_tensor(step_idx, device=dev).to(torch.int64)
+    if step_idx.ndim == 0:
+        step_idx = step_idx.expand(b)
+    if bank is not None:
+        bank = solvers_mod.as_bank(bank)
+        tables = solvers_mod.solver_tables(bank, cfg, dev)
+        policy_id = (torch.zeros((b,), dtype=torch.int64, device=dev)
+                     if policy_id is None
+                     else torch.as_tensor(policy_id, device=dev)
+                     .to(torch.int64))
+        if solver_hist is None:
+            solver_hist = solvers_mod.init_history(bank, b, latents.shape[1:],
+                                                   dev)
+        idx = torch.minimum(torch.clamp_min(step_idx, 0),
+                            tables.budget[policy_id] - 1)
+        t = tables.t[policy_id, idx]              # (B,) per-row timesteps
+        tips_vec = tables.tips[policy_id, idx]    # (B,) per-row TIPS flag
+    else:
+        idx = torch.clamp(step_idx, 0, cfg.num_inference_steps - 1)
+        t = ts[idx]                               # (B,) per-row timesteps
+        tips_vec = idx < cfg.tips_active_iters    # (B,) per-row TIPS flag
     kw = {} if reuse_cache is None else {"reuse_cache": reuse_cache}
+    if row_stats:
+        kw["row_stats"] = True
+    if bank is not None:
+        overrides = solvers_mod.gather_overrides(tables, bank, policy_id,
+                                                 idx)
+        if overrides is not None:
+            kw["overrides"] = overrides
     use_cfg = cfg.guidance_scale != 1.0 and uncond_context is not None
     if use_cfg:
         ctx_fused = torch.cat([context, uncond_context], dim=0)
@@ -140,24 +192,79 @@ def denoise_step(unet_apply, latents, context, uncond_context, step_idx: int,
         out = unet_apply(latents, t, context, tips_vec,
                          stats_rows=stats_rows, **kw)
     eps, stats = out[:2]
+    new_cache = out[2] if reuse_cache is not None else None
     if use_cfg:
         eps = guided_eps(eps, cfg.guidance_scale)
-    latents = ddim_step(latents, eps, t, t - step, acp)
+    new_hist = None
+    if bank is not None:
+        new_lat, new_hist = solvers_mod.solver_update(
+            latents, eps, solver_hist, tables, bank, policy_id, idx)
+    else:
+        new_lat = ddim_step(latents, eps, t, t - step, acp)
+    if active is not None:
+        keep = active.reshape((b,) + (1,) * (latents.ndim - 1))
+        new_lat = torch.where(keep, new_lat, latents)
+        if new_hist is not None and new_hist.shape[1] > 0:
+            new_hist = torch.where(keep[:, None], new_hist, solver_hist)
+    if bank is not None:
+        return new_lat, stats, new_cache, new_hist
     if reuse_cache is not None:
-        return latents, stats, out[2]
-    return latents, stats
+        return new_lat, stats, new_cache
+    return new_lat, stats
+
+
+def _resolve_bank(sampler_policy, sampler_bank):
+    """(bank, steps, policy index) of a banked one-shot run.
+
+    Without ``sampler_bank`` the policy is its own one-entry bank; with it,
+    every row runs under the full bank pinned to the policy's index, for
+    the policy's own budget, as a slot row of that policy does.
+    """
+    if sampler_bank is None:
+        bank = solvers_mod.as_bank(sampler_policy)
+        return bank, solvers_mod.bank_max_steps(bank), 0
+    bank = solvers_mod.as_bank(sampler_bank)
+    if sampler_policy not in bank:
+        raise ValueError(
+            f"sampler_policy {sampler_policy.key()} is not an entry of "
+            f"sampler_bank {[p.key() for p in bank]}")
+    return bank, sampler_policy.num_steps, bank.index(sampler_policy)
 
 
 def sample_scan(unet_apply, latents, context, uncond_context,
-                cfg: DDIMConfig, stats_rows=None):
+                cfg: DDIMConfig, stats_rows=None, sampler_policy=None,
+                sampler_bank=None):
     """All denoising steps as a loop over :func:`denoise_step`.
 
     Returns ``(latents, stacked UNetStats)`` (leading axis = iterations).
+
+    ``sampler_policy`` (a ``solvers.SamplerPolicy``) swaps the solver and
+    the step budget: ``policy.num_steps`` iterations of the banked
+    :func:`denoise_step`, history carried.  ``sampler_bank`` (a bank
+    holding the policy) runs under the full bank with every row pinned
+    to the policy's index: the one-shot oracle of a slot row under that
+    bank.
     """
     b = latents.shape[0]
     if stats_rows is not None and not (0 < stats_rows <= b):
         raise ValueError(f"stats_rows={stats_rows} outside [1, {b}]")
+    if sampler_bank is not None and sampler_policy is None:
+        raise ValueError("sampler_bank requires sampler_policy (the "
+                         "bank entry to run every row under)")
     per_step = []
+    if sampler_policy is not None:
+        bank, n, pid0 = _resolve_bank(sampler_policy, sampler_bank)
+        policy_id = torch.full((b,), pid0, dtype=torch.int64,
+                               device=latents.device)
+        hist = solvers_mod.init_history(bank, b, latents.shape[1:],
+                                        latents.device)
+        for i in range(n):
+            latents, stats, _, hist = denoise_step(
+                unet_apply, latents, context, uncond_context, i, cfg,
+                stats_rows=stats_rows, bank=bank, policy_id=policy_id,
+                solver_hist=hist)
+            per_step.append(stats)
+        return latents, UNetStats.stack(per_step)
     for i in range(cfg.num_inference_steps):
         latents, stats = denoise_step(unet_apply, latents, context,
                                       uncond_context, i, cfg,

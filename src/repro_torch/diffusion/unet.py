@@ -7,7 +7,9 @@ self-attention, cross-attention that emits the TIPS CLS score, and a GEGLU
 FFN whose rows run INT12/INT6 per the TIPS mask; every stage goes through
 ``repro_torch.kernels.dispatch``.  With a ``ReuseCache`` and an enabled
 ``UNetConfig.reuse_policy`` each block recomputes only the patches whose
-input changed (``repro_torch.core.reuse``).
+input changed (``repro_torch.core.reuse``).  Slot serving asks for per-row
+counters (``row_stats`` -> ``SlotStats``) and passes phase-scheduled
+per-row threshold scales (``overrides``, a ``solvers.PhaseOverrides``).
 
 Layouts: activations are NHWC at the public functions, as in the JAX
 package.  Parameters are a nested dict in the JAX layout with one change:
@@ -28,7 +30,8 @@ import torch.nn.functional as F
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.reuse import (LayerReuseCache, ReuseCache, ReusePolicy,
                                     ReuseRowCounters, window_patch_mask)
-from repro_torch.diffusion.stats import UNetStats, attn_layer_order
+from repro_torch.diffusion.stats import (SlotStats, UNetStats,
+                                         attn_layer_order)
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.dispatch import KernelPolicy
 from repro_torch.kernels.patch_reuse import ops as reuse_ops
@@ -287,11 +290,12 @@ def _transformer_block(x2d, p, context, cfg: UNetConfig, tips_active,
                        stats_rows=None, dup_after_self: bool = False,
                        policy: KernelPolicy | None = None,
                        precision: PrecisionPolicy | None = None,
-                       reuse=None):
+                       reuse=None, row_stats: bool = False, overrides=None):
     """x2d: (B, H, W, C) -> (out, PSSAStats, TIPSResult, reuse_out).
 
     ``tips_active``: a bool or a (B,) per-row bool tensor.  ``stats_rows``
-    restricts the stats to the first N batch rows.  ``dup_after_self``:
+    restricts the stats to the first N batch rows; ``row_stats`` reports
+    per-row integer counters instead of folded stats.  ``dup_after_self``:
     under fused CFG the cond and uncond halves agree up to the first
     cross-attention, so everything through this block's self-attention
     runs on the cond half and the hidden state is tiled to both halves
@@ -305,11 +309,27 @@ def _transformer_block(x2d, p, context, cfg: UNetConfig, tips_active,
     ones, and returns ``reuse_out = (new LayerReuseCache,
     ReuseRowCounters)``.  At threshold 0 the plan is the identity and the
     block is bit-identical to the dense path (DESIGN.md §9).
+
+    ``overrides`` (a ``solvers.PhaseOverrides`` or None) carries per-row
+    threshold SCALES for the request rows, tiled to [cond | uncond] where
+    the hidden state is; a lane the bank never schedules is None, which
+    leaves the block's ops and kernel routing exactly as without it.
     """
     b, hgt, wid, c = x2d.shape
     heads = cfg.num_heads
     policy = cfg.kernel_policy if policy is None else policy
     precision = cfg.precision if precision is None else precision
+    if (reuse is not None and overrides is not None
+            and overrides.reuse_scale is not None):
+        raise NotImplementedError(
+            "the reuse_scale lane of a phase schedule is not ported yet "
+            "(ROADMAP Queue 1 item 2)")
+
+    def per_rows(vec, nrows):
+        # override lanes are per REQUEST row; tile to [cond | uncond]
+        if vec is not None and vec.shape[0] != nrows:
+            vec = torch.cat([vec, vec], dim=0)
+        return vec
 
     def gather(x):
         return x if reuse is None else reuse_ops.gather_rows(x, rows)
@@ -335,12 +355,18 @@ def _transformer_block(x2d, p, context, cfg: UNetConfig, tips_active,
     q = _attn_heads(gather(hn), p["sa_q"]["w"], heads)
     k = _attn_heads(hn, p["sa_k"]["w"], heads)
     v = _attn_heads(hn, p["sa_v"]["w"], heads)
+    sa_threshold = cfg.pssa_threshold
+    if overrides is not None and overrides.pssa_scale is not None:
+        # a (B,) threshold: dispatch takes the reference route
+        sa_threshold = cfg.pssa_threshold * per_rows(overrides.pssa_scale,
+                                                     q.shape[0])
     sa = dispatch.self_attention(policy, q, k, v, patch=cfg.patch_size(hgt),
-                                 threshold=cfg.pssa_threshold,
+                                 threshold=sa_threshold,
                                  prune_scores=cfg.pssa,
                                  stats_rows=None if dup_after_self
                                  else stats_rows,
-                                 reference_stats=cfg.pssa_stats_reference)
+                                 reference_stats=cfg.pssa_stats_reference,
+                                 row_stats=row_stats)
     sa_full = scatter("sa", _merge_heads(sa.out) @ p["sa_o"]["w"]
                       + p["sa_o"]["b"])
     h = resid + sa_full
@@ -361,8 +387,11 @@ def _transformer_block(x2d, p, context, cfg: UNetConfig, tips_active,
     q = _attn_heads(gather(hn), p["ca_q"]["w"], heads)
     kt = _attn_heads(context, p["ca_k"]["w"], heads)
     vt = _attn_heads(context, p["ca_v"]["w"], heads)
+    tips_scale = (None if overrides is None
+                  else per_rows(overrides.tips_scale, h.shape[0]))
     ca = dispatch.cross_attention(policy, q, kt, vt, precision=precision,
-                                  stats_rows=stats_rows)
+                                  stats_rows=stats_rows, row_stats=row_stats,
+                                  threshold_scale=tips_scale)
     ca_full = scatter("ca", _merge_heads(ca.out) @ p["ca_o"]["w"]
                       + p["ca_o"]["b"])
     h = resid + ca_full
@@ -409,10 +438,15 @@ def _upsample(x, p):
 def unet_forward(params, latents, timesteps, context, cfg: UNetConfig,
                  tips_active=True, stats_rows: Optional[int] = None,
                  cfg_dup: bool = False,
-                 reuse_cache: Optional[ReuseCache] = None):
+                 reuse_cache: Optional[ReuseCache] = None,
+                 row_stats: bool = False, overrides=None):
     """latents (B, S, S, 4), timesteps (B,), context (B, Ttext, ctx_dim).
 
-    Returns (eps (B, S, S, 4), ``UNetStats``).  ``cfg_dup``: ``latents`` and
+    Returns (eps (B, S, S, 4), ``UNetStats``), or a ``SlotStats`` of
+    per-row integer counters under ``row_stats`` (slot serving, rows at
+    different denoising steps).  ``overrides`` (a
+    ``solvers.PhaseOverrides``) threads per-row threshold scales to every
+    transformer block; None leaves every block as it was.  ``cfg_dup``: ``latents`` and
     ``timesteps`` carry only the cond half (B rows) while ``context``
     carries ``[cond | uncond]`` (2B rows); the shared prefix runs once and
     ``eps`` comes back with 2B rows.
@@ -447,7 +481,8 @@ def unet_forward(params, latents, timesteps, context, cfg: UNetConfig,
         h, sa, ca, ru = _transformer_block(h, bp, context, cfg, tips_active,
                                            stats_rows,
                                            dup_after_self=needs_dup,
-                                           reuse=reuse)
+                                           reuse=reuse, row_stats=row_stats,
+                                           overrides=overrides)
         if needs_dup:
             temb = torch.cat([temb, temb], dim=0)
             needs_dup = False
@@ -497,7 +532,8 @@ def unet_forward(params, latents, timesteps, context, cfg: UNetConfig,
     h = group_norm(h, params["norm_out"]["scale"],
                    params["norm_out"]["bias"], cfg.groups)
     eps = conv2d(F.silu(h), params["conv_out"]["w"], params["conv_out"]["b"])
-    stats = UNetStats.from_layer_list(attn_layer_order(cfg), pssa_stats,
+    stats_cls = SlotStats if row_stats else UNetStats
+    stats = stats_cls.from_layer_list(attn_layer_order(cfg), pssa_stats,
                                       tips_stats, reuse=reuse_stats)
     if reuse_on:
         new_cache = ReuseCache(valid=torch.ones_like(reuse_cache.valid),

@@ -118,13 +118,16 @@ _FFN = {"reference": _ffn_reference, "dbsc": _ffn_dbsc}
 def self_attention(policy: KernelPolicy, q, k, v, *, patch: int,
                    threshold, prune_scores: bool = True,
                    stats_rows: int | None = None,
-                   reference_stats: bool = False) -> attention.SelfAttnOut:
+                   reference_stats: bool = False,
+                   row_stats: bool = False) -> attention.SelfAttnOut:
     """PSSA self-attention via the policy's implementation.
 
     Three combinations take the materializing reference whatever the
     policy: ``reference_stats`` (the seed stats oracle), ``prune_scores``
     False (the kernel always prunes), and a per-row ``threshold`` tensor
-    (the kernel takes one scalar threshold).
+    (a bank that schedules ``pssa_scale``: the kernel takes one scalar
+    threshold, as the JAX package's does).  ``row_stats`` reports per-row
+    integer counters (``pssa.PSSARowCounters``), the same on every route.
     """
     impl = policy.self_attention
     per_row = isinstance(threshold, torch.Tensor) and threshold.ndim >= 1
@@ -132,22 +135,31 @@ def self_attention(policy: KernelPolicy, q, k, v, *, patch: int,
         impl = "reference"
     if impl == "fused":
         return attention.self_attention_pssa_fused(
-            q, k, v, patch=patch, threshold=threshold, stats_rows=stats_rows)
+            q, k, v, patch=patch, threshold=threshold, stats_rows=stats_rows,
+            row_stats=row_stats)
     return attention.self_attention_pssa(
         q, k, v, patch=patch, threshold=threshold,
         prune_scores=prune_scores, stats_rows=stats_rows,
-        reference_stats=reference_stats)
+        reference_stats=reference_stats, row_stats=row_stats)
 
 
 def cross_attention(policy: KernelPolicy, q, k_text, v_text, *,
-                    precision, stats_rows: int | None = None
+                    precision, stats_rows: int | None = None,
+                    row_stats: bool = False, threshold_scale=None
                     ) -> attention.CrossAttnOut:
-    """Cross-attention + TIPS spotting via the policy's implementation."""
+    """Cross-attention + TIPS spotting via the policy's implementation.
+
+    ``row_stats`` reports per-row important-token counts
+    (``tips.TIPSRowCounters``); ``threshold_scale`` ((B,) or None) scales
+    each row's spotting threshold downstream of both implementations.
+    """
     if policy.cross_attention == "fused":
         return attention.cross_attention_tips_fused(
-            q, k_text, v_text, precision=precision, stats_rows=stats_rows)
+            q, k_text, v_text, precision=precision, stats_rows=stats_rows,
+            row_stats=row_stats, threshold_scale=threshold_scale)
     return attention.cross_attention_tips(
-        q, k_text, v_text, precision=precision, stats_rows=stats_rows)
+        q, k_text, v_text, precision=precision, stats_rows=stats_rows,
+        row_stats=row_stats, threshold_scale=threshold_scale)
 
 
 def ffn_geglu(policy: KernelPolicy, hn, p, important, precision=None):

@@ -315,6 +315,110 @@ def test_smoke_temporal_reuse_goes_through_the_kernels(cuda):
             assert torch.equal(c.computed[0], c.total[0])
 
 
+def _guided_smoke(policy):
+    cfg = bk_sdm.with_kernel_policy(bk_sdm.SMOKE, policy)
+    return dataclasses.replace(cfg, ddim=dataclasses.replace(
+        cfg.ddim, guidance_scale=7.5))
+
+
+def _slot_requests(cuda, cfg, n, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    out = []
+    for _ in range(n):
+        toks = torch.randint(1, cfg.text.vocab_size, (1, cfg.text.max_len),
+                             generator=g, device=cuda, dtype=torch.int32)
+        toks[:, 0] = 0
+        lat = torch.randn((1, 16, 16, 4), generator=g, device=cuda)
+        out.append((toks, torch.zeros_like(toks), lat))
+    return out
+
+
+SLICE = KernelPolicy(self_attention="fused", cross_attention="fused",
+                     ffn="dbsc")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("num_slots", [1, 2, 4])
+def test_smoke_slot_step_goes_through_the_kernels(cuda, num_slots):
+    """9 / 9 / 18 launches per slot step under fused CFG at any slot
+    count; admit, decode and retire launch none."""
+    cfg = _guided_smoke(SLICE)
+    eng = DiffusionEngine(cfg)
+    reqs = _slot_requests(cuda, cfg, num_slots, 1)
+    runtime.reset_launch_counts()
+    state = eng.init_slots(num_slots)
+    for s, (toks, un, lat) in enumerate(reqs):
+        state = eng.admit(state, s, toks, uncond_tokens=un, latents=lat)
+    assert sum(runtime.launch_counts().values()) == 0
+    for step in range(1, cfg.ddim.num_inference_steps + 1):
+        state = eng.slot_step(state)
+        counts = runtime.launch_counts()
+        assert counts["pssa_attention"] == 9 * step
+        assert counts["cross_attention_tips"] == 9 * step
+        assert counts["bitslice_matmul"] == 18 * step
+    done = eng.finished_slots(state)
+    assert done == list(range(num_slots))
+    imgs = eng.decode_slots(state, done)
+    state = eng.retire(state, done)
+    assert runtime.launch_counts()["pssa_attention"] == 27
+    assert bool(torch.isfinite(imgs).all()) and not bool(state.active.any())
+
+
+@pytest.mark.requires_cuda
+def test_smoke_slots_bit_equal_to_one_shot_on_card(cuda):
+    """Two requests admitted together run generate's batch-2 rows bit for
+    bit on the kernels, and the accumulator's headline equals the
+    one-shot ledger's."""
+    from repro_torch.diffusion.pipeline import (energy_report_from_accum,
+                                                energy_report_multi)
+    cfg = _guided_smoke(SLICE)
+    eng = DiffusionEngine(cfg)
+    reqs = _slot_requests(cuda, cfg, 2, 2)
+    state = eng.init_slots(2)
+    for s, (toks, un, lat) in enumerate(reqs):
+        state = eng.admit(state, s, toks, uncond_tokens=un, latents=lat)
+    while not eng.finished_slots(state):
+        state = eng.slot_step(state)
+    out = eng.generate(torch.cat([r[0] for r in reqs]),
+                       uncond_tokens=torch.cat([r[1] for r in reqs]),
+                       latents=torch.cat([r[2] for r in reqs]))
+    assert torch.equal(state.latents, out.latents)
+    assert (energy_report_from_accum(cfg, state.accum).summary()
+            == energy_report_multi(cfg, [out.stats]).summary())
+
+
+@pytest.mark.requires_cuda
+def test_smoke_pssa_scale_bank_takes_the_plain_route(cuda):
+    """A bank that schedules pssa_scale runs self-attention on the plain
+    version (per-row thresholds), so no pssa_attention launch; its
+    counters and latents equal a run routed to the plain self-attention
+    by the policy itself."""
+    from repro_torch.diffusion.solvers import PhaseSchedule, SamplerPolicy
+    bank = (SamplerPolicy.ddim(3, phases=PhaseSchedule(
+        pssa_scale=(2.0, 1.0, 0.5))),)
+    runs = {}
+    for name, pol in (("slice", SLICE), ("plain", dataclasses.replace(
+            SLICE, self_attention="reference"))):
+        cfg = _guided_smoke(pol)
+        eng = DiffusionEngine(cfg, generator=torch.Generator(
+            device=cuda).manual_seed(0))
+        reqs = _slot_requests(cuda, cfg, 2, 3)
+        state = eng.init_slots(2, bank=bank)
+        for s, (toks, un, lat) in enumerate(reqs):
+            state = eng.admit(state, s, toks, uncond_tokens=un, latents=lat)
+        runtime.reset_launch_counts()
+        while not eng.finished_slots(state):
+            state = eng.slot_step(state)
+        runs[name] = (state, runtime.launch_counts())
+    (state, counts), (plain, _) = runs["slice"], runs["plain"]
+    assert counts.get("pssa_attention", 0) == 0
+    assert counts["cross_attention_tips"] == 27
+    assert counts["bitslice_matmul"] == 54
+    assert torch.equal(state.latents, plain.latents)
+    for f in ("nnz", "ones_xor", "imp", "rows"):
+        assert torch.equal(getattr(state.accum, f), getattr(plain.accum, f))
+
+
 def _ssd_inputs(cuda, bh, t, p, n, heads, dt_scale, seed):
     g = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn((bh, t, p), generator=g, device=cuda)
