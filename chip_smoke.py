@@ -45,26 +45,44 @@ no result line):
                  none in admit, decode or retire; s per slot_step at 1, 2
                  and 4 slots, each kernel against its plain version on a
                  4-slot step's inputs;
-6. bitmap      — the PSXU entry point ``dispatch.patch_bitmap`` on the
+6. slot_reuse  — slot serving under temporal reuse on the slice's
+                 weights, on the fused attention + float FFN route and the
+                 slice route: two requests through 2 and 4 slots, bit-equal
+                 across the slot counts and to one-shot ``generate`` on the
+                 float FFN (within a bound on the slice route), the reuse
+                 buckets and ratios from the accumulator; admission
+                 invalidates a row's cache; a staggered ddim@25 +
+                 dpm2m@12 (detail_guard) bank drain bit-equal to its
+                 banked one-shot witnesses; 9/9/18 + 9 patch-delta
+                 launches per step; s per slot_step under reuse beside
+                 dense;
+7. dit         — DiT-S/2 (12 x 384, 6 heads of 64, a 16x16 token grid) at
+                 full width through the same engine: one-shot generate on
+                 the slice route (300/300/600 launches, profile), the
+                 kernels against their plain versions on the card over
+                 two steps on three seeds, each kernel on one DiT step's
+                 inputs (held and timed), a banked slot drain on 2 and 4
+                 slots bit-equal to one-shot, temporal reuse;
+8. bitmap      — the PSXU entry point ``dispatch.patch_bitmap`` on the
                  pruned SAS of one cond row at res 64/32/16 (full-width
                  weights): kernel against plain bit for bit, per-row sums
                  of the counts against the PSSA popcount, 3 launches;
-7. temporal    — the slice with temporal patch reuse: threshold 0 equals
+9. temporal    — the slice with temporal patch reuse: threshold 0 equals
                  the dense latents (as far as a dense witness agrees with
                  itself), threshold 0.05 launches 225/225/450/225;
-8. edit        — img2img replay at capacity 1/8 against recorded base
+10. edit       — img2img replay at capacity 1/8 against recorded base
                  caches: the same input computes nothing and returns the
                  base latents; a re-noised window stays within the cap and
                  runs PSSA on T/8 queries; an a-priori window runs no
                  patch delta;
-9. parity      — two full-width steps from the same latents, route against
+11. parity     — two full-width steps from the same latents, route against
                  route: the reference policy against the fused attention
                  kernels, then reference attention + DBSC against the
                  slice's route (fused + DBSC) on three seeds, then the
                  reference route against the fused route with temporal
                  reuse; latents, ledger headlines and per-layer PSSA and
                  reuse counters must agree within the limits below.
-10. serve      — mamba2-130m at full width (random weights from a seed)
+12. serve      — mamba2-130m at full width (random weights from a seed)
                  through ``repro_torch.launch.serve.serve``: batch 4, a
                  4096-token prompt, 64 greedy tokens, prefill's scan on the
                  ``ssd_scan`` kernel (24 launches, none in decode); the
@@ -133,6 +151,24 @@ SLOT_TIMED_STEPS = 4                # timed steps per slot count (1 warm-up)
 # 4.9); a request admitted one step ahead, or two rows' solver histories
 # swapped, read far above it (PERF.md, PR 19).
 DBSC_SLOT_SHARE = 0.01
+# A request served on 2 slots against the same request on 4: cuBLAS picks
+# its fp32 GEMM by the batch's row count, so the bits differ (ROADMAP
+# Queue 3).  Ten times the largest difference the H100 read at
+# REUSE_THRESHOLD (PERF.md §6): BK-SDM 7.42e-4 on the float FFN and
+# 3.95e-3 on the slice route (the idle rows enter DBSC's per-tensor
+# scale), DiT-S/2 4.96e-5 on the float FFN.
+SLOT_COUNT_ATOL = {"float route": 7.4e-3, "slice route": 4e-2, "dit": 5e-4}
+# The same on the reuse buckets: equal on the float FFN; on the slice
+# route DBSC's shared scale can carry a patch delta across the threshold.
+# Ten times the H100's reading at the median step-1 delta (1 patch of
+# 16800 moved; PERF.md §6), as a share of the patches accounted.
+SLICE_BUCKET_SHARE = 6e-4
+# DiT-S/2's staggered slot rows on the slice route against their own
+# batch's witness, as DBSC_SLOT_SHARE holds BK-SDM's: the H100 read
+# 0.76-1.11 % of the rows' 4.5e-2-5.1e-2 DBSC-to-float distance (DiT's
+# FFN error is small beside the UNet's 3.6-4.9); 4.5x the largest, as
+# DBSC_SLOT_SHARE was set (PERF.md §6).
+DIT_DBSC_SLOT_SHARE = 0.05
 SLICE_ROUTE_PER_STEP = {"pssa_attention": 9, "cross_attention_tips": 9,
                         "bitslice_matmul": 18}
 L2_BYTES = 50e6             # H100 L2: timed inputs rotate past it
@@ -259,6 +295,30 @@ def bound(bytes_moved: float, ops: float, rate: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# (bytes, operations) each kernel's function needs: each input read once,
+# each output written once; PSSA's P V counts the kept scores only, the
+# bit-slice matmul's lo plane only its INT12 rows (lo * prec is zero on
+# the others).  The bounds take PSSA's and cross-attention's operations as
+# three TF32 products each (their 3xTF32 scheme).
+def pssa_work(bh, tq, tk, d, nnz):
+    return (4.0 * (2 * bh * tq * d + 2 * bh * tk * d + 2 * bh * tq),
+            2.0 * bh * tq * tk * d + 2.0 * nnz * d)
+
+
+def cross_work(bh, tq, tk, d):
+    return (4.0 * (2 * bh * tq * d + 2 * bh * tk * d + bh * tq),
+            2.0 * 2.0 * bh * tq * tk * d)
+
+
+def bitslice_work(m, k, n, int12):
+    return (4.0 * ((m + int12) * k + k * n + m + m * n),
+            2.0 * k * n * (m + int12))
+
+
+def delta_work(b, p, w):
+    return 4.0 * (2 * b * p * w + b * p), 3.0 * b * p * w
 
 
 def rotating_ms(torch, fn, sets, reps: int = 30, warmup: int = 3) -> float:
@@ -447,9 +507,7 @@ def pssa_rows(torch, g) -> dict:
             *a, THRESHOLD, patch), sets, reps=10)
         plain_ms = rotating_ms(torch, lambda *a: pssa_attention_stats_ref(
             *a, THRESHOLD, patch), sets, reps=3)
-        nnz = plain[1].sum().item()
-        ops = 2.0 * bh * tq * tk * d + 2.0 * nnz * d  # q k^T + kept p @ v
-        nbytes = 4.0 * (2 * bh * tq * d + 2 * bh * tk * d + 2 * bh * tq)
+        nbytes, ops = pssa_work(bh, tq, tk, d, plain[1].sum().item())
         fp32 = bound(nbytes, ops, FP32_FLOPS)
         old = PSSA_FP32_MS[label]
         kernel_row(rows, "pssa_attention", label, [bh, tq, tk, d, patch],
@@ -513,8 +571,7 @@ def patch_delta_rows(torch, g, kernel, plain_fn) -> dict:
             torch, lambda a, c: F.pairwise_distance(
                 a.reshape(-1, w), c.reshape(-1, w), p=math.inf, eps=0.0),
             sets, reps=20)
-        nbytes = 4.0 * (2 * b * p * w + b * p)
-        ops = 3.0 * b * p * w                  # subtract, abs, max
+        nbytes, ops = delta_work(b, p, w)      # subtract, abs, max
         kernel_row(rows, "patch_delta", label, [b, p, w], ms, plain_ms,
                    bound(nbytes, ops, FP32_FLOPS), 0.0, main,
                    library_ms=lib_ms)
@@ -589,9 +646,7 @@ def bitslice_rows(torch, g) -> dict:
             *a, "input_stationary"), sets, reps=30)
         plain_ms = rotating_ms(torch, bitslice_matmul_ref, sets, reps=5)
         pair_ms, why = _int_mm_pair(torch, sets)
-        int12 = prec.sum().item()
-        ops = 2.0 * kk * n * (m + int12)         # hi rows + kept lo rows
-        nbytes = 4.0 * ((m + int12) * kk + kk * n + m + m * n)
+        nbytes, ops = bitslice_work(m, kk, n, prec.sum().item())
         kernel_row(rows, "bitslice_matmul", label, [m, kk, n], ms, plain_ms,
                    bound(nbytes, ops, INT8_OPS), 0.0, main)
         old = BITSLICE_INT32_MS.get(label)
@@ -687,8 +742,7 @@ def cross_rows(torch, g) -> dict:
             *a, 0), sets, reps=10)
         sdpa_ms = rotating_ms(torch, F.scaled_dot_product_attention, sets,
                               reps=30)
-        ops = 2.0 * 2.0 * bh * tq * tk * d           # q k^T + p @ v
-        nbytes = 4.0 * (2 * bh * tq * d + 2 * bh * tk * d + bh * tq)
+        nbytes, ops = cross_work(bh, tq, tk, d)
         fp32 = bound(nbytes, ops, FP32_FLOPS)
         old = CROSS_FP32_MS[label]
         kernel_row(rows, "cross_attention_tips", label, [bh, tq, tk, d], ms,
@@ -1179,11 +1233,13 @@ def _hold_launches(counts, steps, per_step, label):
     require(got == want, f"{label}: launches {got} != {want}")
 
 
-def _policy_witnesses(torch, eng, reqs, policies, bank):
+def _policy_witnesses(torch, eng, reqs, policies, bank, rows: int = 2):
     """One-shot witnesses of a banked drain: one ``generate`` per policy
-    under the whole bank, that policy's requests as the rows of one batch
-    (a lone request tiled to two rows).  Returns each request's output
-    row (an ``EngineOutput`` of one row) and each policy's output.
+    under the whole bank, that policy's requests tiled to the ``rows``
+    rows of one batch (the slot count: on the card cuBLAS picks its fp32
+    GEMM by the row count, so a row's bits follow the batch's shape;
+    ROADMAP Queue 3).  Returns each request's output row (an
+    ``EngineOutput`` of one row) and each policy's output.
 
     One call per policy sums the policy's counters over its requests in
     integers before the one float32 conversion, as the accumulator does;
@@ -1192,20 +1248,25 @@ def _policy_witnesses(torch, eng, reqs, policies, bank):
     lone request's terms double exactly.  (``stats_rows`` cannot pick
     one row: under fused CFG the first block's self-attention runs
     before the tiling to [cond | uncond] and accounts every request row,
-    as in the JAX package; ROADMAP Queue 3.)"""
-    rows, outs = {}, {}
+    as in the JAX package; ROADMAP Queue 3.)  Tiling scales every term
+    by a power of two, exactly."""
+    out_rows, outs = {}, {}
     for p, pol in enumerate(bank):
         mine = [r for r in range(len(reqs)) if policies[r] == p]
-        take = mine if len(mine) > 1 else mine * 2
+        require(rows % len(mine) == 0 and (rows // len(mine)) & (
+            rows // len(mine) - 1) == 0, f"{len(mine)} requests do not "
+            f"tile {rows} rows by a power of two")
+        take = mine * (rows // len(mine))
         out = outs[p] = eng.generate(
             torch.cat([reqs[r][0] for r in take]),
             uncond_tokens=torch.cat([reqs[r][1] for r in take]),
             latents=torch.cat([reqs[r][2] for r in take]),
             sampler_policy=pol, sampler_bank=bank)
         for j, r in enumerate(mine):
-            rows[r] = dataclasses.replace(out, images=out.images[j:j + 1],
-                                          latents=out.latents[j:j + 1])
-    return rows, outs
+            out_rows[r] = dataclasses.replace(
+                out, images=out.images[j:j + 1],
+                latents=out.latents[j:j + 1])
+    return out_rows, outs
 
 
 def _hold_images(torch, eng, label, r, img, chunk, witness):
@@ -1323,7 +1384,9 @@ def _hold_slot_kernels(torch, seen, label, cfg, slots):
     within OUT_ATOL and CAS_ATOL, the bit-slice matmul bit for bit.  All
     three wrappers must have been caught at the step's largest shapes:
     2 * slots UNet rows under fused CFG, so PSSA BH = rows * heads, the
-    cross-attention's B = rows and the bit-slice M = rows * latent**2."""
+    cross-attention's B = rows and the bit-slice M = rows * T, T the
+    tokens of the largest attention resolution (the UNet's latent**2,
+    DiT's token grid)."""
     from repro_torch.kernels.bitslice_matmul.kernel import (
         bitslice_matmul_kernel)
     from repro_torch.kernels.bitslice_matmul.ref import bitslice_matmul_ref
@@ -1342,7 +1405,8 @@ def _hold_slot_kernels(torch, seen, label, cfg, slots):
         lead[name] = max(lead.get(name, 0), first[0])
     want = {"pssa_attention_kernel": rows * cfg.unet.num_heads,
             "cross_attention_heads_kernel": rows,
-            "bitslice_matmul_kernel": rows * cfg.unet.latent_size ** 2}
+            "bitslice_matmul_kernel":
+                rows * cfg.unet.attn_resolutions()[0] ** 2}
     print(f"  {label}: largest leading dimension caught {json.dumps(lead)}")
     require(lead == want, f"{label}: kernel inputs caught at leading "
             f"dimensions {lead}, want {want}")
@@ -1560,6 +1624,798 @@ def slots_phase(torch, eng):
         box[0] = eng.slot_step(box[0])
         return eng.last_wall_s
     profile_breakdown(torch, step, f"slot_step {SLOT_COUNTS[-1]} slots")
+
+
+def _reuse_sums(torch, accum):
+    """(computed, total) reuse buckets, summed over layers, on the host."""
+    return (accum.reuse_computed.sum(1).cpu(),
+            accum.reuse_total.sum(1).cpu())
+
+
+def _stats_reuse_sums(torch, stats):
+    """A one-shot run's reuse counters summed over layers and rows, per
+    step: what its requests add to the accumulator's buckets."""
+    comp = sum(c.computed.to(torch.int64).sum(1) for c in stats.reuse)
+    tot = sum(c.total.to(torch.int64).sum(1) for c in stats.reuse)
+    return comp.cpu(), tot.cpu()
+
+
+def _slot_step_times(torch, eng, seed):
+    """s per slot_step at SLOT_COUNTS slots, every slot admitted at step
+    0: one warm-up step, then SLOT_TIMED_STEPS timed ones; returns
+    {slots: (median s, the timed steps' reuse ratio or None)}."""
+    out = {}
+    for n in SLOT_COUNTS:
+        state = eng.init_slots(n)
+        for s in range(n):
+            toks, un, lat = _slot_request(torch, eng, seed + s)
+            state = eng.admit(state, s, toks, uncond_tokens=un, latents=lat)
+        state = eng.slot_step(state)                  # warm-up
+        walls = []
+        for _ in range(SLOT_TIMED_STEPS):
+            state = eng.slot_step(state)
+            walls.append(eng.last_wall_s)
+        require(bool(torch.isfinite(state.latents).all()),
+                f"{n} slots: non-finite latents")
+        ratio = None
+        if state.reuse_cache is not None:
+            comp, tot = _reuse_sums(torch, state.accum)
+            timed = slice(1, 1 + SLOT_TIMED_STEPS)
+            ratio = 1.0 - comp[timed].sum().item() / tot[timed].sum().item()
+        out[n] = (sorted(walls)[len(walls) // 2], ratio)
+        print(f"  slot_step at {n} slots: s "
+              f"{' '.join(f'{w:.4f}' for w in walls)} (median "
+              f"{out[n][0]:.4f})" + ("" if ratio is None else
+                                     f", reuse ratio {ratio:.4f}"))
+    return out
+
+
+def _median_step1_delta(torch, e, reqs):
+    """The median per-patch delta over every block and row at step 1 of
+    ``e.generate`` of ``reqs`` (tokens, uncond tokens, latents) under
+    reuse at threshold 0.  Step 0 computes every patch, so step 1's
+    deltas are those of a run at any threshold, and about half of that
+    step's patches fall under this one.  With random weights every delta
+    exceeds REUSE_THRESHOLD (nothing is reused there), so this is the
+    threshold at which the card checks see rows in different reuse
+    states, the scatter over the cache and the reuse_scale lane."""
+    from repro_torch.core.reuse import ReusePolicy
+    from repro_torch.diffusion.engine import DiffusionEngine
+    from repro_torch.kernels import dispatch
+
+    cfg = _with_reuse(e.cfg, ReusePolicy.temporal(0.0))
+    layers = len(cfg.unet.layer_order())
+    deltas, orig = [], dispatch.patch_delta
+
+    def keep(*a, **kw):
+        out = orig(*a, **kw)
+        deltas.append(out[0].flatten())
+        return out
+    dispatch.patch_delta = keep
+    try:
+        DiffusionEngine(cfg, params={"text": e.text_params,
+                                     "unet": e.unet_params,
+                                     "vae": e.vae_params}).generate(
+            torch.cat([r[0] for r in reqs]),
+            uncond_tokens=torch.cat([r[1] for r in reqs]),
+            latents=torch.cat([r[2] for r in reqs]))
+    finally:
+        dispatch.patch_delta = orig
+    require(len(deltas) == layers * cfg.ddim.num_inference_steps,
+            f"{len(deltas)} patch deltas over "
+            f"{cfg.ddim.num_inference_steps} steps of {layers} blocks")
+    return torch.cat(deltas[layers:2 * layers]).median().item()
+
+
+def _hold_mid_ratios(ratios, label):
+    """At the median step-1 delta: nothing reused at step 0 (every cache
+    row starts invalid), and over the later steps some patches reused and
+    some computed."""
+    mean = sum(ratios[1:]) / len(ratios[1:])
+    print(f"  {label}: mean reuse ratio over steps 1.. {mean:.4f}")
+    require(ratios[0] == 0.0 and 0.0 < mean < 1.0
+            and all(0.0 <= r <= 1.0 for r in ratios),
+            f"{label}: reuse ratios {ratios} not inside (0, 1)")
+
+
+@phase("slot_reuse")
+def slot_reuse_phase(torch, eng):
+    """Slot serving under temporal reuse at full width on the slice's
+    weights, guidance 7.5, on two routes: fused attention + float FFN, and
+    the slice route (fused + DBSC), both with the patch-delta kernel; at
+    REUSE_THRESHOLD (the policy's default, where the untrained model
+    reuses nothing) and at the median step-1 patch delta
+    (``_median_step1_delta``, where it reuses some patches of most rows).
+
+    (a) Two ddim@25 requests admitted at step 0 into 2 slots and into 4
+        slots, 25 slot steps, at both thresholds.  Float route: each
+        request's latents bit-equal to ``generate`` of the two tiled to
+        the slot count under the same policy, the reuse buckets equal to
+        that run's reuse counters, ``energy_report_from_accum`` key for
+        key its ``energy_report_multi``.  Slice route: each request within
+        DBSC_SLOT_SHARE of its DBSC-to-float one-shot distance, the
+        headlines within LEDGER_RTOL (DBSC's per-tensor scale couples the
+        rows).  Across 2 and 4 slots the latents within SLOT_COUNT_ATOL
+        (cuBLAS picks its fp32 GEMM by the row count; ROADMAP Queue 3),
+        the reuse buckets equal (slice route: within SLICE_BUCKET_SHARE).  ``reuse_ratios_from_accum`` reads 0
+        at step 0 and lies in [0, 1], at the median strictly between 0
+        and 1 over the later steps.  9 / 9 / 18 launches per slot step (no
+        bit-slice launch on the float route) and 9 patch deltas; none in
+        admit, decode or retire.
+    (b) Admission invalidates: at threshold 1e9, one slot, a step, a
+        retirement, a new request, a step; the new occupant's first step
+        computes every patch.
+    (c) A staggered drain of ddim@25 and dpm2m@12 under
+        ``PhaseSchedule.detail_guard()`` (which schedules ``reuse_scale``
+        and ``pssa_scale``; the per-row PSSA threshold takes the plain
+        self-attention, so no PSSA launch) on 2 slots, float route, at
+        both thresholds: each request bit-equal to its banked one-shot
+        witness under reuse, both policies' headlines key for key, and at
+        the median some patches reused.
+    Then s per slot_step at SLOT_COUNTS slots under reuse at
+    REUSE_THRESHOLD beside the dense slice engine's, with the timed
+    steps' reuse ratio (recorded only).
+    """
+    from repro_torch.core.reuse import ReusePolicy
+    from repro_torch.diffusion.engine import DiffusionEngine
+    from repro_torch.diffusion.pipeline import (energy_report_banked,
+                                                energy_report_from_accum,
+                                                energy_report_multi,
+                                                reuse_ratios_from_accum)
+    from repro_torch.diffusion.solvers import PhaseSchedule, SamplerPolicy
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.dispatch import KernelPolicy
+
+    params = {"text": eng.text_params, "unet": eng.unet_params,
+              "vae": eng.vae_params}
+    routes = (("float route", KernelPolicy(
+                  self_attention="fused", cross_attention="fused",
+                  reuse="kernel")),
+              ("slice route", KernelPolicy(**SLICE_ROUTE)))
+
+    def engine(pol, thr):
+        return DiffusionEngine(_with_reuse(dataclasses.replace(
+            eng.cfg, unet=dataclasses.replace(eng.cfg.unet,
+                                              kernel_policy=pol)),
+            ReusePolicy.temporal(thr)), params=params)
+
+    # (a) two requests at step 0, 2 and 4 slots, each held against
+    # generate of the two tiled to the slot count (equal shapes)
+    reqs = [_slot_request(torch, eng, seed) for seed in (141, 143)]
+    mid = _median_step1_delta(torch, engine(routes[0][1], 0.0), reqs)
+    print(f"(a) median step-1 patch delta {mid!r}")
+    for thr in (REUSE_THRESHOLD, mid):
+        one_shot = {}
+        for label, pol in routes:
+            e = engine(pol, thr)
+            cfg = e.cfg
+            name = f"{label} at threshold {thr:.6g}"
+            exact = pol.ffn != "dbsc"
+            per_step = dict(SLICE_ROUTE_PER_STEP, patch_delta=9)
+            if exact:
+                per_step["bitslice_matmul"] = 0
+            runs = {}
+            for n in (2, 4):
+                take = [reqs[i % 2] for i in range(n)]
+                out = one_shot[label, n] = e.generate(
+                    torch.cat([r[0] for r in take]),
+                    uncond_tokens=torch.cat([r[1] for r in take]),
+                    latents=torch.cat([r[2] for r in take]))
+                one_rep = energy_report_multi(cfg, [out.stats]).summary()
+                runtime.reset_launch_counts()
+                state, lats, _, _, walls, wall = _drain_slots(torch, e, reqs,
+                                                              n)
+                _hold_launches(runtime.launch_counts(), len(walls), per_step,
+                               f"(a) {name}, {n} slots")
+                runs[n] = (state, lats)
+                ratios = reuse_ratios_from_accum(cfg, state.accum)
+                print(f"(a) {name}, {n} slots: {len(walls)} slot steps, "
+                      f"drain {wall:.3f} s; reuse ratio per step "
+                      + json.dumps([round(r, 6) for r in ratios]))
+                if thr == mid:
+                    _hold_mid_ratios(ratios, f"(a) {name}, {n} slots")
+                require(ratios[0] == 0.0
+                        and all(0.0 <= r <= 1.0 for r in ratios),
+                        f"(a) {name} {n} slots: reuse ratios {ratios}")
+                rep = energy_report_from_accum(cfg, state.accum).summary()
+                for r in range(2):
+                    moved = (lats[r] - out.latents[r:r + 1]).abs().max().item()
+                    print(f"  {name} {n} slots request {r}: latents max|diff| "
+                          f"{moved:.3e} against generate at batch {n}")
+                    if exact:
+                        require(same_bits(torch, lats[r],
+                                          out.latents[r:r + 1]),
+                                f"(a) {name} {n} slots request {r}: latents "
+                                f"differ from one-shot by {moved}")
+                    else:
+                        fl = one_shot[routes[0][0], n].latents[r:r + 1]
+                        dist = (out.latents[r:r + 1] - fl).abs().max().item()
+                        lim = DBSC_SLOT_SHARE * dist
+                        print(f"    the one-shot run's DBSC against float FFN "
+                              f"distance {dist:.3e}, limit {lim:.3e}")
+                        require(moved <= lim, f"(a) {name} {n} slots request "
+                                f"{r}: latents differ by {moved} > {lim}")
+                comp, tot = _reuse_sums(torch, state.accum)
+                w_comp, w_tot = _stats_reuse_sums(torch, out.stats)
+                scale = n // 2               # the witness holds each twice
+                if exact:
+                    require(torch.equal(comp * scale, w_comp)
+                            and torch.equal(tot * scale, w_tot),
+                            f"(a) {name} {n} slots: reuse buckets "
+                            f"{comp.tolist()} / {tot.tolist()} != one-shot "
+                            f"{w_comp.tolist()} / {w_tot.tolist()} over "
+                            f"{scale}")
+                    require(rep == one_rep, f"(a) {name} {n} slots: headline "
+                            f"{rep} != one-shot {one_rep}")
+                else:
+                    rel = {k: abs(rep[k] - one_rep[k])
+                           / max(abs(one_rep[k]), 1e-30) for k in HEADLINES}
+                    print(f"  {name} {n} slots headline relative "
+                          + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()))
+                    for k in ("ema_gb_per_iter_optimized",
+                              "mj_per_iter_with_ema"):
+                        require(rel[k] <= LEDGER_RTOL, f"(a) {name} {n} "
+                                f"slots: {k} differs by {rel[k]}")
+            # across slot counts the batch's shape changes, and with it the
+            # algorithm cuBLAS picks for some fp32 GEMMs (ROADMAP Queue 3)
+            (s2, l2), (s4, l4) = runs[2], runs[4]
+            for r in range(2):
+                d = (l2[r] - l4[r]).abs().max().item()
+                lim = SLOT_COUNT_ATOL[label]
+                print(f"  {name} request {r}: 2 slots against 4 slots "
+                      f"max|diff| {d:.3e} (limit {lim:.1e}, bit-equal "
+                      f"{same_bits(torch, l2[r], l4[r])})")
+                require(d <= lim, f"(a) {name} request {r}: 2 and 4 slots "
+                        f"differ by {d}")
+            for f in ("reuse_computed", "reuse_total"):
+                a, b = getattr(s2.accum, f), getattr(s4.accum, f)
+                moved = int((a - b).abs().sum())
+                lim = 0 if exact else int(SLICE_BUCKET_SHARE
+                                          * int(s2.accum.reuse_total.sum()))
+                print(f"  {name} {f} buckets across 2 and 4 slots: {moved} "
+                      f"patches moved (limit {lim}; sums {int(a.sum())} / "
+                      f"{int(b.sum())})")
+                require(moved <= lim, f"(a) {name}: {f} buckets differ by "
+                        f"{moved} patches across slot counts")
+
+    # (b) admission invalidates the row's cache
+    e = engine(routes[0][1], 1e9)
+    state = e.init_slots(1)
+    toks, un, lat = _slot_request(torch, eng, 151)
+    state = e.slot_step(e.admit(state, 0, toks, uncond_tokens=un,
+                                latents=lat))
+    require(bool(state.reuse_cache.valid[0]), "(b) cache invalid after a step")
+    state = e.retire(state, [0])
+    toks, un, lat = _slot_request(torch, eng, 153)
+    state = e.admit(state, 0, toks, uncond_tokens=un, latents=lat)
+    require(not bool(state.reuse_cache.valid[0]), "(b) admit kept the cache")
+    before = _reuse_sums(torch, state.accum)
+    state = e.slot_step(state)
+    after = _reuse_sums(torch, state.accum)
+    d_comp = int(after[0][0] - before[0][0])
+    d_tot = int(after[1][0] - before[1][0])
+    print(f"(b) threshold 1e9: the new occupant's first step computed "
+          f"{d_comp} of {d_tot} patches")
+    require(d_tot > 0 and d_comp == d_tot, f"(b) the new occupant computed "
+            f"{d_comp} of {d_tot} patches")
+
+    # (c) staggered banked drain under reuse, float route
+    policies = [0, 1, 1]
+    reqs = [_slot_request(torch, eng, seed) for seed in (161, 163, 165)]
+    for thr in (REUSE_THRESHOLD, mid):
+        e = engine(routes[0][1], thr)
+        bank = (SamplerPolicy.ddim(e.cfg.ddim.num_inference_steps),
+                SamplerPolicy.dpm2m(12, phases=PhaseSchedule.detail_guard()))
+        name = f"float route at threshold {thr:.6g}"
+        runtime.reset_launch_counts()
+        state, lats, _, _, walls, wall = _drain_slots(
+            torch, e, reqs, 2, bank=bank, policies=policies)
+        _hold_launches(runtime.launch_counts(), len(walls),
+                       {"pssa_attention": 0, "cross_attention_tips": 9,
+                        "bitslice_matmul": 0, "patch_delta": 9},
+                       f"(c) {name}")
+        comp, tot = _reuse_sums(torch, state.accum)
+        ratio = 1.0 - comp.sum().item() / tot.sum().item()
+        print(f"(c) {name}, bank {[p.key() for p in bank]}: "
+              f"{len(walls)} slot steps, drain {wall:.3f} s, "
+              f"{len(reqs) / wall:.3f} images/s, reuse ratio {ratio:.4f}")
+        if thr == mid:
+            require(0.0 < ratio < 1.0, f"(c) {name}: reuse ratio {ratio}")
+        wit, outs = _policy_witnesses(torch, e, reqs, policies, bank)
+        for r in range(len(reqs)):
+            d = (lats[r] - wit[r].latents[:1]).abs().max().item()
+            print(f"  request {r} ({bank[policies[r]].key()}): latents "
+                  f"max|diff| {d:.3e} against its banked one-shot witness")
+            require(same_bits(torch, lats[r], wit[r].latents[:1]),
+                    f"(c) {name} request {r}: latents differ by {d}")
+        banked = energy_report_banked(e.cfg, state.accum, bank)
+        for p, entry in enumerate(banked.entries):
+            ref = energy_report_multi(e.cfg, [outs[p].stats],
+                                      sampler_policy=bank[p]).summary()
+            got = entry.report.summary()
+            print(f"  {bank[p].key()}: {entry.images} images, "
+                  f"mj_per_iter_with_ema {got['mj_per_iter_with_ema']!r}")
+            require(got == ref, f"(c) {name} {bank[p].key()}: headline "
+                    f"{got} != one-shot {ref}")
+
+    # s per slot_step under reuse beside the dense slice engine
+    print("slot_step times, dense slice route:")
+    dense = _slot_step_times(torch, eng, 171)
+    print(f"slot_step times, slice route under reuse (threshold "
+          f"{REUSE_THRESHOLD}):")
+    e = engine(routes[1][1], REUSE_THRESHOLD)
+    reused = _slot_step_times(torch, e, 171)
+    for n in SLOT_COUNTS:
+        print(f"slot_step {n} slots: dense {dense[n][0]:.4f} s, under "
+              f"reuse {reused[n][0]:.4f} s (reuse ratio "
+              f"{reused[n][1]:.4f})")
+    box = [e.init_slots(SLOT_COUNTS[-1])]
+    for s in range(SLOT_COUNTS[-1]):
+        toks, un, lat = _slot_request(torch, eng, 191 + s)
+        box[0] = e.admit(box[0], s, toks, uncond_tokens=un, latents=lat)
+    box[0] = e.slot_step(box[0])
+
+    def step():
+        box[0] = e.slot_step(box[0])
+        return e.last_wall_s
+    profile_breakdown(torch, step, f"slot_step {SLOT_COUNTS[-1]} slots "
+                                   f"under reuse")
+
+
+DIT_PER_STEP = {"pssa_attention": 12, "cross_attention_tips": 12,
+                "bitslice_matmul": 24}
+
+
+@contextlib.contextmanager
+def _plain_bitslice():
+    """Route the DBSC FFN's integer matmul to its plain version (the same
+    integers) inside the block, so that a reference route on the card
+    launches no kernel at all."""
+    from repro_torch.kernels.bitslice_matmul import ops as dbsc_ops
+    from repro_torch.kernels.bitslice_matmul.ref import bitslice_matmul_ref
+    kern = dbsc_ops.bitslice_matmul_kernel
+    dbsc_ops.bitslice_matmul_kernel = (
+        lambda hi, lo, w, prec, dataflow=None:
+        bitslice_matmul_ref(hi, lo, w, prec))
+    try:
+        yield
+    finally:
+        dbsc_ops.bitslice_matmul_kernel = kern
+
+
+def _time_captured(torch, seen, label):
+    """Each captured kernel input set timed on the kernel and on its plain
+    version, the inputs rotated past the L2 as the kernels phase does,
+    with the bound counted as that phase counts it (PSSA and
+    cross-attention on the 3xTF32 basis, the bit-slice matmul on the int8
+    one; PSSA's kept products and the INT12 rows from the captured
+    inputs)."""
+    from repro_torch.kernels.bitslice_matmul.kernel import (
+        bitslice_matmul_kernel)
+    from repro_torch.kernels.bitslice_matmul.ref import bitslice_matmul_ref
+    from repro_torch.kernels.cross_attention_tips.kernel import (
+        cross_attention_tips_kernel)
+    from repro_torch.kernels.cross_attention_tips.ref import (
+        cross_attention_tips_ref)
+    from repro_torch.kernels.pssa_attention.kernel import (
+        pssa_attention_kernel)
+    from repro_torch.kernels.pssa_attention.ref import (
+        pssa_attention_stats_ref)
+
+    rot = torch.Generator(device="cuda").manual_seed(97)
+
+    def rotated(first, make):
+        size = sum(x.numel() * x.element_size() for x in first)
+        return [first] + [make() for _ in range(
+            1, max(1, math.ceil(2 * L2_BYTES / size)))]
+
+    for key, (a, kw) in sorted(seen.items()):
+        name = key[0]
+        if name == "pssa_attention_kernel":
+            q, k, v, thr, patch = a
+            q, k, v = (x.contiguous() for x in (q, k, v))
+            bh, tq, d = q.shape
+            tk = k.shape[1]
+            sets = rotated((q, k, v), lambda: tuple(
+                torch.randn(x.shape, generator=rot, device="cuda")
+                for x in (q, k, v)))
+            nnz = pssa_attention_stats_ref(q, k, v, thr, patch)[1]
+            ms = rotating_ms(torch, lambda *x: pssa_attention_kernel(
+                *x, thr, patch), sets, reps=30)
+            plain_ms = rotating_ms(torch, lambda *x: pssa_attention_stats_ref(
+                *x, thr, patch), sets, reps=10)
+            nbytes, ops = pssa_work(bh, tq, tk, d, nnz.sum().item())
+            b = bound(nbytes, 3.0 * ops, TF32_FLOPS)
+            shape = [bh, tq, tk, d, patch]
+            kname = "pssa_attention"
+        elif name == "cross_attention_heads_kernel":
+            q, k, v, cls = a
+            bb, h, tq, d = q.shape
+            tk = k.shape[2]
+            flat = tuple(x.reshape(bb * h, x.shape[2], d).contiguous()
+                         for x in (q, k, v))
+            sets = rotated(flat, lambda: tuple(
+                torch.randn(x.shape, generator=rot, device="cuda")
+                for x in flat))
+            ms = rotating_ms(torch, lambda *x: cross_attention_tips_kernel(
+                *x, cls), sets, reps=30)
+            plain_ms = rotating_ms(torch, lambda *x: cross_attention_tips_ref(
+                *x, cls), sets, reps=10)
+            nbytes, ops = cross_work(bb * h, tq, tk, d)
+            b = bound(nbytes, 3.0 * ops, TF32_FLOPS)
+            shape = [bb, h, tq, tk, d]
+            kname = "cross_attention_tips"
+        else:
+            hi, lo, w, prec = a
+            m, kk = hi.shape
+            n = w.shape[1]
+
+            def planes():
+                return (torch.randint(0, 64, (m, kk), generator=rot,
+                                      device="cuda", dtype=torch.int32),
+                        torch.randint(0, 64, (m, kk), generator=rot,
+                                      device="cuda", dtype=torch.int32),
+                        w, prec)
+            sets = rotated((hi, lo, w, prec), planes)
+            ms = rotating_ms(torch, lambda *x: bitslice_matmul_kernel(
+                *x, **kw), sets, reps=30)
+            plain_ms = rotating_ms(torch, bitslice_matmul_ref, sets, reps=10)
+            b = bound(*bitslice_work(m, kk, n, prec.sum().item()), INT8_OPS)
+            shape = [m, kk, n]
+            kname = "bitslice_matmul"
+        print(f"  {label} {kname} shape={shape} kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={b[0]:.4f} "
+              f"bound_by={b[1]} ({b[0] / ms:.1%} of the bound)", flush=True)
+        del sets
+
+
+def _time_patch_delta(torch, shapes, label):
+    """The patch-delta kernel at ``shapes`` (B, P, W): bit-exact against
+    its plain version, then timed beside it and ``F.pairwise_distance``
+    as the kernels phase times it (inputs rotated past the L2), with the
+    same bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.patch_reuse.kernel import patch_delta_kernel
+    from repro_torch.kernels.patch_reuse.ref import patch_delta_ref
+    g = torch.Generator(device="cuda").manual_seed(6144)
+    for b, p, w in shapes:
+        sets = []
+        for _ in range(max(1, math.ceil(2 * L2_BYTES / (8 * b * p * w)))):
+            x = torch.randn((b, p, w), generator=g, device="cuda")
+            sets.append((x, x + 0.02 * torch.randn((b, p, w), generator=g,
+                                                   device="cuda")))
+        x, r = sets[0]
+        require(same_bits(torch, patch_delta_kernel(x, r),
+                          patch_delta_ref(x, r, 1)),
+                f"{label} patch_delta {[b, p, w]}: not bit-exact")
+        ms = rotating_ms(torch, patch_delta_kernel, sets, reps=60)
+        plain_ms = rotating_ms(torch, lambda a, c: patch_delta_ref(a, c, 1),
+                               sets, reps=20)
+        lib_ms = rotating_ms(torch, lambda a, c: F.pairwise_distance(
+            a.reshape(-1, w), c.reshape(-1, w), p=math.inf, eps=0.0),
+            sets, reps=20)
+        bnd = bound(*delta_work(b, p, w), FP32_FLOPS)
+        print(f"  {label} patch_delta shape={[b, p, w]} bit-exact; "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} bound_ms={bnd[0]:.4f} "
+              f"bound_by={bnd[1]} ({bnd[0] / ms:.1%} of the bound)",
+              flush=True)
+        del sets
+
+
+@phase("dit")
+def dit_phase(torch):
+    """DiT-S/2 (``configs.dit_s``) at full width: 12 blocks of d_model 384,
+    6 heads of 64, 32x32x4 latents (a 16x16 token grid), the CLIP ViT-L/14
+    text tower and the SD-v1 VAE decoder, random weights from a seed;
+    batch 1, guidance 7.5, 25 DDIM steps.
+
+    (a) One-shot ``generate`` on the slice route (fused + DBSC) after a
+        warm-up: s/image, ms/step, 300 / 300 / 600 launches; one more
+        under the profiler.
+    (b) The slice route against the reference route with every kernel's
+        plain version on the card (``_plain_bitslice``; no launch), two
+        steps from the same latents on each of DBSC_SEEDS, held as the
+        parity phase holds its DBSC pair: latents DBSC_LATENT_ATOL, PSSA
+        counters DBSC_COUNTER_SCALE times the bound, the optimized EMA
+        bytes and ``mj_per_iter_with_ema`` LEDGER_RTOL.
+    (c) Each kernel against its plain version on the inputs one fused-CFG
+        DiT step hands it (PSSA (6, 256, 64) in block 0 and (12, 256, 64)
+        after it, cross-attention (2, 6, 256, 77, 64), the bit-slice
+        matmul at (512, 384, 3072) and (512, 1536, 384)), then timed
+        there beside the plain version and the bound.
+    (d) A staggered drain of ddim@25 and dpm2m@12 + detail_guard on the
+        fused attention + float FFN route, on 2 and on 4 slots: each
+        request bit-equal to its banked one-shot witness, the banked
+        energy summary equal key for key across the slot counts and the
+        latents within SLOT_COUNT_ATOL.  Then ddim@25 and dpm2m@12 with no
+        phases (no per-row PSSA threshold) on 2 slots on the slice route:
+        12 / 12 / 24 launches a step, each request within
+        DIT_DBSC_SLOT_SHARE of its one-shot DBSC-to-float distance.
+    (e) Temporal reuse on the slice route + the patch-delta kernel:
+        threshold 0 equal to the dense latents (as far as a dense witness
+        equals itself); at REUSE_THRESHOLD and at the median step-1 patch
+        delta the reuse ratio (inside (0, 1) at the median) and 12
+        patch-delta launches a step; at the median, (d)'s detail_guard
+        bank on 2 slots, float FFN, bit-equal to its banked witnesses; the
+        patch delta timed at DiT's shapes, (1, 16, 6144) in block 0 and
+        (2, 16, 6144) after it.
+    """
+    from repro_torch.configs import dit_s
+    from repro_torch.core.reuse import ReusePolicy
+    from repro_torch.diffusion.engine import DiffusionEngine
+    from repro_torch.diffusion.pipeline import (
+        aggregated_reuse_ratios_per_iter, energy_report,
+        energy_report_banked, energy_report_multi)
+    from repro_torch.diffusion.solvers import PhaseSchedule, SamplerPolicy
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.dispatch import KernelPolicy
+
+    slice_pol = KernelPolicy(self_attention="fused", cross_attention="fused",
+                             ffn="dbsc")
+    cfg = dit_s.with_kernel_policy(dit_s.CONFIG, slice_pol)
+    u = cfg.unet
+    require((u.depth, u.hidden_size, u.num_heads, u.latent_size, u.patch)
+            == (12, 384, 6, 32, 2) and cfg.ddim.num_inference_steps == 25
+            and cfg.ddim.guidance_scale == 7.5, "not DiT-S/2's geometry "
+            "and the paper's schedule")
+    t0 = time.perf_counter()
+    eng = DiffusionEngine(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(20))
+    torch.cuda.synchronize()
+    print(f"DiT-S/2 parameters initialised in {time.perf_counter() - t0:.2f}"
+          f" s")
+    params = {"text": eng.text_params, "unet": eng.unet_params,
+              "vae": eng.vae_params}
+    steps = cfg.ddim.num_inference_steps
+
+    # (a) one-shot generate on the slice route
+    toks, un = _tokens(torch, cfg, 27)
+    latents = eng.init_latents(1, torch.Generator(device="cuda")
+                               .manual_seed(28))
+    eng.generate(toks, uncond_tokens=un, latents=latents.clone())  # warm-up
+    runtime.reset_launch_counts()
+    out = eng.generate(toks, uncond_tokens=un, latents=latents.clone())
+    counts = runtime.launch_counts()
+    wall = eng.last_wall_s
+    want = {k: v * steps for k, v in DIT_PER_STEP.items()}
+    print(f"(a) launches {json.dumps(counts)}")
+    require(all(counts.get(k) == v for k, v in want.items()),
+            f"(a) launch counts {counts} != {want}")
+    require(tuple(out.images.shape) == (1, 256, 256, 3),
+            f"image shape {tuple(out.images.shape)}")
+    require(bool(torch.isfinite(out.images).all())
+            and bool(torch.isfinite(out.latents).all()),
+            "non-finite DiT output")
+    print(f"(a) DiT-S/2 s/image {wall:.4f}  ms/step "
+          f"{wall / steps * 1e3:.3f} (wall of one generate incl. text "
+          f"encode and VAE decode, over {steps} steps)")
+    summary = energy_report(cfg, out.stats).summary()
+    print("(a) energy_report " + json.dumps(summary))
+    require(all(math.isfinite(v) for v in summary.values()),
+            "non-finite DiT energy report")
+
+    def generate():
+        eng.generate(toks, uncond_tokens=un, latents=latents.clone())
+        return eng.last_wall_s
+    profile_breakdown(torch, generate, "dit")
+
+    # (b) the slice route against the plain versions on the card
+    two = dataclasses.replace(cfg, ddim=dataclasses.replace(
+        cfg.ddim, num_inference_steps=2))
+    ref_cfg = dit_s.with_kernel_policy(two, KernelPolicy(ffn="dbsc"))
+    ker_cfg = dit_s.with_kernel_policy(two, slice_pol)
+    for seed in DBSC_SEEDS:
+        toks_s, un_s = _tokens(torch, cfg, seed)
+        lat_s = eng.init_latents(1, torch.Generator(device="cuda")
+                                 .manual_seed(seed + 1))
+        runs = []
+        for name, c in (("reference (plain on the card)", ref_cfg),
+                        ("slice route", ker_cfg)):
+            e = DiffusionEngine(c, params=params)
+            runtime.reset_launch_counts()
+            if c is ref_cfg:
+                with _plain_bitslice():
+                    o = e.generate(toks_s, uncond_tokens=un_s,
+                                   latents=lat_s.clone())
+                n_launch = sum(runtime.launch_counts().values())
+                require(n_launch == 0, f"(b) the reference route launched "
+                        f"{runtime.launch_counts()}")
+            else:
+                o = e.generate(toks_s, uncond_tokens=un_s,
+                               latents=lat_s.clone())
+            runs.append((o, energy_report(c, o.stats).summary()))
+        print(f"(b) DiT slice route against plain, seed {seed}, two steps:")
+        diff = _differences(torch, runs[0][0], runs[1][0],
+                            (runs[0][1], runs[1][1]), heads=u.num_heads)
+        require(diff["latents"] <= DBSC_LATENT_ATOL, f"(b) seed {seed}: "
+                f"latents differ by {diff['latents']}")
+        require(diff["counters"] <= DBSC_COUNTER_SCALE, f"(b) seed {seed}: "
+                f"counters at {diff['counters']:.2f} of the bound")
+        for k in ("ema_gb_per_iter_optimized", "mj_per_iter_with_ema"):
+            require(diff[k] <= LEDGER_RTOL, f"(b) seed {seed}: {k} differs "
+                    f"by {diff[k]}")
+        rs, fs = runs[0][0].stats.cpu(), runs[1][0].stats.cpu()
+        tips_same = all(torch.equal(a.important, b.important)
+                        for a, b in zip(rs.tips, fs.tips))
+        pssa_same = all(torch.equal(a.nnz, b.nnz) and torch.equal(
+            a.bitmap_ones_xor, b.bitmap_ones_xor)
+            for a, b in zip(rs.pssa, fs.pssa))
+        print(f"  PSSA counters exact {pssa_same}; TIPS masks exact "
+              f"{tips_same}")
+        require(tips_same, f"(b) seed {seed}: TIPS counts differ")
+
+    # (c) each kernel on the inputs of one DiT step
+    state = eng.init_slots(1)
+    state = eng.admit(state, 0, toks, uncond_tokens=un, latents=latents)
+    seen = _capture_kernel_inputs(lambda: eng.slot_step(state))
+    _hold_slot_kernels(torch, seen, "(c) DiT step", cfg, 1)
+    _time_captured(torch, seen, "(c) DiT step")
+    del seen
+
+    # (d) banked slots on the fused attention + float FFN route
+    fcfg = dit_s.with_kernel_policy(cfg, KernelPolicy(
+        self_attention="fused", cross_attention="fused"))
+    e = DiffusionEngine(fcfg, params=params)
+    bank = (SamplerPolicy.ddim(steps),
+            SamplerPolicy.dpm2m(12, phases=PhaseSchedule.detail_guard()))
+    policies = [0, 1, 1]
+    reqs = [_slot_request(torch, e, seed) for seed in (181, 183, 185)]
+    summaries, lats_at = {}, {}
+    for n in (2, 4):
+        wit, _ = _policy_witnesses(torch, e, reqs, policies, bank, rows=n)
+        runtime.reset_launch_counts()
+        state, lats, _, _, walls, wall = _drain_slots(
+            torch, e, reqs, n, bank=bank, policies=policies)
+        _hold_launches(runtime.launch_counts(), len(walls),
+                       {"pssa_attention": 0, "cross_attention_tips": 12,
+                        "bitslice_matmul": 0}, f"(d) {n} slots")
+        print(f"(d) DiT bank {[p.key() for p in bank]}, {n} slots: "
+              f"{len(walls)} slot steps, drain {wall:.3f} s, "
+              f"{len(reqs) / wall:.3f} images/s")
+        for r in range(len(reqs)):
+            d = (lats[r] - wit[r].latents[:1]).abs().max().item()
+            print(f"  request {r} ({bank[policies[r]].key()}): latents "
+                  f"max|diff| {d:.3e} against its banked one-shot witness "
+                  f"at batch {n}")
+            require(same_bits(torch, lats[r], wit[r].latents[:1]),
+                    f"(d) {n} slots request {r}: latents differ by {d}")
+        summaries[n], lats_at[n] = energy_report_banked(
+            fcfg, state.accum, bank).summary(), lats
+    for r in range(len(reqs)):
+        d = (lats_at[2][r] - lats_at[4][r]).abs().max().item()
+        lim = SLOT_COUNT_ATOL["dit"]
+        print(f"  request {r}: 2 slots against 4 slots max|diff| {d:.3e} "
+              f"(limit {lim:.1e})")
+        require(d <= lim, f"(d) request {r}: 2 and 4 slots differ by {d}")
+    print("(d) energy_report_banked (2 slots) " + json.dumps(summaries[2]))
+    require(summaries[2] == summaries[4], "(d) the banked summary differs "
+            "across 2 and 4 slots")
+
+    # (d) on the slice route, a bank that schedules no pssa_scale (the
+    # per-row PSSA threshold takes the plain self-attention), so every
+    # slot step runs the three kernels; DBSC's per-tensor scale couples
+    # the rows, so each request is held to DIT_DBSC_SLOT_SHARE of the
+    # distance between its one-shot runs on the DBSC and the float FFN
+    plain_bank = (SamplerPolicy.ddim(steps), SamplerPolicy.dpm2m(12))
+    fwit, fouts = _policy_witnesses(torch, e, reqs, policies, plain_bank)
+    swit, souts = _policy_witnesses(torch, eng, reqs, policies, plain_bank)
+    runtime.reset_launch_counts()
+    state, lats, _, _, walls, wall = _drain_slots(
+        torch, eng, reqs, 2, bank=plain_bank, policies=policies)
+    _hold_launches(runtime.launch_counts(), len(walls), DIT_PER_STEP,
+                   "(d) slice route, 2 slots")
+    print(f"(d) DiT slice route, bank {[p.key() for p in plain_bank]}, 2 "
+          f"slots: {len(walls)} slot steps, drain {wall:.3f} s, "
+          f"{len(reqs) / wall:.3f} images/s")
+    for r in range(len(reqs)):
+        moved = (lats[r] - swit[r].latents[:1]).abs().max().item()
+        dist = (swit[r].latents[:1] - fwit[r].latents[:1]).abs().max().item()
+        lim = DIT_DBSC_SLOT_SHARE * dist
+        print(f"  request {r} ({plain_bank[policies[r]].key()}): latents "
+              f"max|diff| {moved:.3e} against its banked one-shot witness; "
+              f"DBSC against float FFN {dist:.3e}, limit {lim:.3e}")
+        require(moved <= lim, f"(d) slice route request {r}: latents differ "
+                f"by {moved} > {lim}")
+    banked = energy_report_banked(cfg, state.accum, plain_bank)
+    for p, entry in enumerate(banked.entries):
+        ref, fl = (energy_report_multi(c, [o[p].stats],
+                                       sampler_policy=plain_bank[p]).summary()
+                   for c, o in ((cfg, souts), (fcfg, fouts)))
+        got = entry.report.summary()
+        for k in ("ema_gb_per_iter_optimized", "mj_per_iter_with_ema"):
+            rel = abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-30)
+            lim = max(LEDGER_RTOL, DIT_DBSC_SLOT_SHARE
+                      * abs(ref[k] - fl[k]) / max(abs(ref[k]), 1e-30))
+            print(f"  {plain_bank[p].key()} {k}: relative {rel:.3e} "
+                  f"(limit {lim:.3e})")
+            require(rel <= lim, f"(d) slice route {plain_bank[p].key()}: "
+                    f"{k} differs by {rel}")
+
+    # (e) temporal reuse on the slice route with the patch-delta kernel
+    rpol = KernelPolicy(**SLICE_ROUTE)
+
+    def run(name, reuse):
+        c = _with_reuse(dit_s.with_kernel_policy(cfg, rpol), reuse)
+        runtime.reset_launch_counts()
+        o = DiffusionEngine(c, params=params).generate(
+            toks, uncond_tokens=un, latents=latents.clone())
+        print(f"(e) {name}: launches {json.dumps(runtime.launch_counts())}")
+        return o, runtime.launch_counts(), c
+
+    dense, _, _ = run("dense", ReusePolicy.off())
+    witness, _, _ = run("dense witness", ReusePolicy.off())
+    thr0, _, _ = run("threshold 0", ReusePolicy.temporal(0.0))
+    w_d = (dense.latents - witness.latents).abs().max().item()
+    t_d = (dense.latents - thr0.latents).abs().max().item()
+    w_eq = torch.equal(dense.latents, witness.latents)
+    print(f"(e) dense against dense bit-equal {w_eq} (max|diff| {w_d:.3e});"
+          f" threshold 0 against dense bit-equal "
+          f"{torch.equal(dense.latents, thr0.latents)} (max|diff| {t_d:.3e})")
+    require(torch.equal(dense.latents, thr0.latents) if w_eq else t_d <= w_d,
+            f"(e) threshold 0 differs from dense by {t_d}")
+    temporal, counts, rcfg = run(f"threshold {REUSE_THRESHOLD}",
+                                 ReusePolicy.temporal(REUSE_THRESHOLD))
+    require(counts.get("patch_delta") == 12 * steps,
+            f"(e) patch_delta launches {counts.get('patch_delta')} != "
+            f"{12 * steps}")
+    ratios = aggregated_reuse_ratios_per_iter(rcfg, [temporal.stats])
+    print("(e) reuse ratio per iteration " + json.dumps(ratios))
+    require(ratios[0] == 0.0, "(e) step 0 reused a patch from an invalid "
+            "cache")
+    mid = _median_step1_delta(torch, DiffusionEngine(
+        dit_s.with_kernel_policy(cfg, rpol), params=params),
+        [(toks, un, latents)])
+    temporal, counts_mid, rcfg = run(f"threshold {mid:.6g} (the median "
+                                     f"step-1 delta)",
+                                     ReusePolicy.temporal(mid))
+    require(counts_mid.get("patch_delta") == 12 * steps,
+            f"(e) patch_delta launches {counts_mid.get('patch_delta')} != "
+            f"{12 * steps}")
+    ratios = aggregated_reuse_ratios_per_iter(rcfg, [temporal.stats])
+    print("(e) reuse ratio per iteration " + json.dumps(ratios))
+    _hold_mid_ratios(ratios, f"(e) threshold {mid:.6g}")
+
+    # (e) (d)'s bank, detail_guard and its reuse_scale lane included, on 2
+    # slots under reuse at the median: bit-equal to its banked witnesses
+    e = DiffusionEngine(_with_reuse(dit_s.with_kernel_policy(
+        cfg, KernelPolicy(self_attention="fused", cross_attention="fused",
+                          reuse="kernel")), ReusePolicy.temporal(mid)),
+        params=params)
+    wit, outs = _policy_witnesses(torch, e, reqs, policies, bank)
+    runtime.reset_launch_counts()
+    state, lats, _, _, walls, wall = _drain_slots(
+        torch, e, reqs, 2, bank=bank, policies=policies)
+    _hold_launches(runtime.launch_counts(), len(walls),
+                   {"pssa_attention": 0, "cross_attention_tips": 12,
+                    "bitslice_matmul": 0, "patch_delta": 12},
+                   f"(e) float route at threshold {mid:.6g}, 2 slots")
+    comp, tot = _reuse_sums(torch, state.accum)
+    ratio = 1.0 - comp.sum().item() / tot.sum().item()
+    print(f"(e) DiT bank {[p.key() for p in bank]} under reuse, 2 slots: "
+          f"{len(walls)} slot steps, drain {wall:.3f} s, reuse ratio "
+          f"{ratio:.4f}")
+    require(0.0 < ratio < 1.0, f"(e) slots reuse ratio {ratio}")
+    for r in range(len(reqs)):
+        d = (lats[r] - wit[r].latents[:1]).abs().max().item()
+        print(f"  request {r} ({bank[policies[r]].key()}): latents max|diff| "
+              f"{d:.3e} against its banked one-shot witness")
+        require(same_bits(torch, lats[r], wit[r].latents[:1]),
+                f"(e) slots request {r}: latents differ by {d}")
+    banked = energy_report_banked(e.cfg, state.accum, bank)
+    for p, entry in enumerate(banked.entries):
+        ref = energy_report_multi(e.cfg, [outs[p].stats],
+                                  sampler_policy=bank[p]).summary()
+        require(entry.report.summary() == ref, f"(e) slots "
+                f"{bank[p].key()}: headline differs from one-shot")
+    print("  (e) slots under reuse: latents bit-equal, per-policy headlines "
+          "equal key for key")
+    patch = u.patch_size(u.token_res)
+    width = patch * u.hidden_size
+    _time_patch_delta(torch, [(1, u.token_res ** 2 // patch, width),
+                              (2, u.token_res ** 2 // patch, width)],
+                      "(e)")
+    return counts
 
 
 def profile_breakdown(torch, run, tag: str, top: int = 15):
@@ -1914,7 +2770,7 @@ HEADLINES = ("total_ema_reduction", "ema_gb_per_iter_optimized",
              "mj_per_iter_with_ema")
 
 
-def _differences(torch, ref, other, reports) -> dict:
+def _differences(torch, ref, other, reports, heads: int = 8) -> dict:
     """Latents, ledger headlines and per-layer PSSA counters of two runs
     from the same latents: the largest latent difference, each headline's
     relative difference, and the worst layer's counter difference as a
@@ -1928,7 +2784,7 @@ def _differences(torch, ref, other, reports) -> dict:
     rs, fs = ref.stats.cpu(), other.stats.cpu()
     worst = 0.0
     for li, lk in enumerate(rs.layers):
-        rows = 8 * (lk.resolution ** 2)          # heads x queries, cond row
+        rows = heads * lk.resolution ** 2        # heads x queries, cond row
         allowed = PSSA_MAX_ROW_DIFF * math.ceil(PSSA_MAX_ROW_FRAC * rows)
         for field in ("nnz", "bitmap_ones_xor"):
             a = getattr(rs.pssa[li], field)
@@ -2127,6 +2983,8 @@ def main() -> int:
         rows = kernels_phase(torch)
         eng, counts = slice_phase(torch)
         slots_phase(torch, eng)
+        slot_reuse_phase(torch, eng)
+        dit_phase(torch)
         bitmap_rows, bitmap_counts = bitmap_phase(torch, eng)
         reuse_counts, dense_s = temporal_phase(torch, eng)
         edit_phase(torch, eng, dense_s)

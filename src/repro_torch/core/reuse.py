@@ -210,16 +210,10 @@ def window_patch_mask(window, resolution: int, patch: int,
     return tuple(mask)
 
 
-def layer_channels(cfg, resolution: int) -> int:
-    """Channel width of the transformer block at ``resolution``: the UNet
-    visits ``latent_size >> i`` with ``block_channels[i]``."""
-    stage = (cfg.latent_size // resolution).bit_length() - 1
-    return cfg.block_channels[stage]
-
-
 def reuse_cache_zeros(cfg, batch: int, use_cfg: bool,
                       device="cpu") -> ReuseCache:
-    """All-invalid cache matching ``unet_forward``'s block geometry.
+    """All-invalid cache matching the denoiser's block geometry (the
+    UNet's, or DiT's: one width at one token resolution).
 
     ``use_cfg`` mirrors the fused-CFG prefix dedup: the first attention
     block runs its self-attention on B rows, every later stage on 2B.
@@ -232,7 +226,7 @@ def reuse_cache_zeros(cfg, batch: int, use_cfg: bool,
     layers = []
     for idx, lk in enumerate(attn_layer_order(cfg)):
         t = lk.resolution * lk.resolution
-        c = layer_channels(cfg, lk.resolution)
+        c = cfg.channels_at(lk.resolution)
         pre = batch if (use_cfg and idx == 0) else batch * mult
         post = batch * mult
 

@@ -13,6 +13,13 @@ a free row between steps; ``slot_step`` advances every active row by ONE
 iteration, each at its own step (and, under a bank, its own policy), and
 scatters the rows' integer counters into the state's ``LedgerAccum``;
 ``finished_slots`` / ``decode_slots`` / ``retire`` take finished rows out.
+Under an enabled temporal ``reuse_policy`` the state carries a per-slot
+``ReuseCache``: ``admit`` invalidates the row, so a request's first step
+computes every patch, and ``slot_step`` folds the rows' reuse counters
+into the accumulator.
+
+The engine holds a ``denoiser.Denoiser`` resolved from ``cfg.unet``, so
+everything above serves the UNet and the DiT family alike.
 
 PyTorch runs eagerly, so there is no executable cache; the wall time of a
 call is taken after ``torch.cuda.synchronize()`` on the card.
@@ -28,12 +35,12 @@ import torch
 from repro_torch.diffusion import solvers as solvers_mod
 from repro_torch.diffusion.pipeline import (PipelineConfig,
                                             _default_generator, init_params)
-from repro_torch.core.reuse import reuse_cache_zeros
+from repro_torch.core.reuse import ReuseCache, reuse_cache_zeros
+from repro_torch.diffusion.denoiser import make_denoiser
 from repro_torch.diffusion.sampler import (denoise_step, sample_scan,
                                            sample_scan_reuse)
 from repro_torch.diffusion.stats import LedgerAccum, attn_layer_order
 from repro_torch.diffusion.text_encoder import encode_text
-from repro_torch.diffusion.unet import unet_forward
 from repro_torch.diffusion.vae import decode
 from repro_torch.kernels.runtime import resolve_device
 
@@ -54,10 +61,11 @@ class SlotState:
     occupied rows (the others still run through the fixed-shape UNet call,
     their results discarded and their counters masked).  ``accum`` holds
     the integer ledger buckets.  ``uncond_context`` is None when the
-    config disables CFG.  Under a sampler ``bank``, ``policy_id`` selects
-    each row's policy and ``solver_hist`` (S, H, s, s, C) carries the
-    multistep history; the buckets are then per (policy, step).  The state
-    is functional: every method returns a new one.
+    config disables CFG; ``reuse_cache`` is None unless the config's
+    ``reuse_policy`` is enabled.  Under a sampler ``bank``, ``policy_id``
+    selects each row's policy and ``solver_hist`` (S, H, s, s, C) carries
+    the multistep history; the buckets are then per (policy, step).  The
+    state is functional: every method returns a new one.
     """
     latents: torch.Tensor                     # (S, s, s, C)
     context: torch.Tensor                     # (S, Tk, d) encoded cond text
@@ -65,6 +73,7 @@ class SlotState:
     step_idx: torch.Tensor                    # (S,) int64
     active: torch.Tensor                      # (S,) bool
     accum: LedgerAccum
+    reuse_cache: Optional[ReuseCache] = None  # per-slot temporal reuse
     policy_id: Optional[torch.Tensor] = None  # (S,) int64 under a bank
     solver_hist: Optional[torch.Tensor] = None
     bank: Optional[tuple] = None
@@ -122,6 +131,7 @@ class DiffusionEngine:
                 f"recorded base caches for shrunken gathers)")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.denoiser = make_denoiser(cfg.unet)
         if params is None:
             params = init_params(cfg, generator or _default_generator(
                 self.device), self.device)
@@ -141,8 +151,8 @@ class DiffusionEngine:
                           for i in range(tokens.shape[0])])
 
     def _unet_apply(self, lat, tvec, ctx, active, **kw):
-        return unet_forward(self.unet_params, lat, tvec, ctx, self.cfg.unet,
-                            tips_active=active, **kw)
+        return self.denoiser.apply(self.unet_params, lat, tvec, ctx,
+                                   tips_active=active, **kw)
 
     def init_latents(self, batch: int, generator=None) -> torch.Tensor:
         s = self.cfg.unet.latent_size
@@ -173,10 +183,6 @@ class DiffusionEngine:
                     f"sampler_policy {sampler_policy and sampler_policy.key()}"
                     f" is not an entry of sampler_bank "
                     f"{[p.key() for p in sampler_bank]}")
-        if sampler_policy is not None and cfg.unet.reuse_policy.enabled:
-            raise NotImplementedError(
-                "sampler policies under temporal reuse are not ported yet "
-                "(ROADMAP Queue 1 item 2)")
         use_cfg = _check_cfg_inputs(cfg.ddim.guidance_scale, uncond_tokens)
         prompt_tokens = torch.as_tensor(prompt_tokens, device=self.device)
         if latents is None:
@@ -191,7 +197,8 @@ class DiffusionEngine:
                                       use_cfg=use_cfg, device=self.device)
             latents, stats = sample_scan_reuse(
                 self._unet_apply, latents, context, uncond, cfg.ddim,
-                reuse_cache=cache, stats_rows=stats_rows)
+                reuse_cache=cache, stats_rows=stats_rows,
+                sampler_policy=sampler_policy, sampler_bank=sampler_bank)
         else:
             latents, stats = sample_scan(self._unet_apply, latents, context,
                                          uncond, cfg.ddim,
@@ -238,16 +245,13 @@ class DiffusionEngine:
         its ``policy_index`` at admission, the multistep history rides the
         state, and the ledger buckets are per (policy, step) -- bucket
         ``p * N + i`` (N = the bank's largest budget) holds policy ``p``'s
-        step-``i`` counters (``pipeline.energy_report_banked``).
+        step-``i`` counters (``pipeline.energy_report_banked``).  Under
+        an enabled ``reuse_policy`` the state carries an all-invalid
+        per-slot reuse cache.
         """
         if num_slots < 1:
             raise ValueError(f"num_slots={num_slots} must be >= 1")
         cfg = self.cfg
-        if cfg.unet.reuse_policy.enabled:
-            raise NotImplementedError(
-                "slot serving under temporal reuse (the cache threaded "
-                "through the slots, invalidated on admit) is not ported "
-                "yet: ROADMAP Queue 1 item 2")
         s, c = cfg.unet.latent_size, cfg.unet.in_channels
         ctx_shape = (num_slots, cfg.text.max_len, cfg.text.d_model)
         use_cfg = cfg.ddim.guidance_scale != 1.0
@@ -266,6 +270,9 @@ class DiffusionEngine:
             active=torch.zeros((num_slots,), dtype=torch.bool, device=dev),
             accum=LedgerAccum.zeros(num_buckets,
                                     len(attn_layer_order(cfg.unet)), dev),
+            reuse_cache=(reuse_cache_zeros(cfg.unet, num_slots, use_cfg,
+                                           device=dev)
+                         if cfg.unet.reuse_policy.enabled else None),
             policy_id=(torch.zeros((num_slots,), dtype=torch.int64,
                                    device=dev) if bank is not None else None),
             solver_hist=(solvers_mod.init_history(bank, num_slots, (s, s, c),
@@ -284,7 +291,9 @@ class DiffusionEngine:
         CFG contract of ``generate`` applies, and the state must have been
         built for the same CFG mode.  ``policy_index`` picks the request's
         policy from the state's bank; admission zeroes the row's solver
-        history, so a multistep solver starts as a fresh one-shot run.
+        history, so a multistep solver starts as a fresh one-shot run,
+        and invalidates the row's reuse cache, so its first step reuses
+        nothing of the previous occupant's.
         """
         use_cfg = _check_cfg_inputs(self.cfg.ddim.guidance_scale,
                                     uncond_tokens)
@@ -319,6 +328,9 @@ class DiffusionEngine:
             new = dataclasses.replace(
                 new, uncond_context=_set_row(state.uncond_context, slot,
                                              un[0]))
+        if state.reuse_cache is not None:
+            new = dataclasses.replace(
+                new, reuse_cache=state.reuse_cache.invalidate_row(slot))
         if state.bank is not None:
             new = dataclasses.replace(
                 new, policy_id=_set_row(state.policy_id, slot, policy_index),
@@ -334,15 +346,18 @@ class DiffusionEngine:
         ``active`` before the add.  A banked row at or past its budget
         (a finished slot not yet retired) maps out of range and is
         dropped, so it can never bleed into the next policy's buckets.
+        Under temporal reuse the state's cache is threaded through the
+        step and the rows' reuse counters land in the same buckets.
         Wall seconds land in ``self.last_wall_s``.
         """
         cfg = self.cfg
         t0 = time.perf_counter()
         if state.bank is not None:
-            lat, stats, _, hist = denoise_step(
+            lat, stats, cache, hist = denoise_step(
                 self._unet_apply, state.latents, state.context,
                 state.uncond_context, state.step_idx, cfg.ddim,
-                active=state.active, row_stats=True, bank=state.bank,
+                active=state.active, row_stats=True,
+                reuse_cache=state.reuse_cache, bank=state.bank,
                 policy_id=state.policy_id, solver_hist=state.solver_hist)
             n_max = solvers_mod.bank_max_steps(state.bank)
             budgets = solvers_mod.solver_tables(
@@ -351,13 +366,16 @@ class DiffusionEngine:
                                  state.policy_id * n_max + state.step_idx,
                                  len(state.bank) * n_max)
         else:
-            lat, stats = denoise_step(
+            out = denoise_step(
                 self._unet_apply, state.latents, state.context,
                 state.uncond_context, state.step_idx, cfg.ddim,
-                active=state.active, row_stats=True)
+                active=state.active, row_stats=True,
+                reuse_cache=state.reuse_cache)
+            lat, stats = out[:2]
+            cache = out[2] if state.reuse_cache is not None else None
             hist, bucket = None, state.step_idx
         new = dataclasses.replace(
-            state, latents=lat, solver_hist=hist,
+            state, latents=lat, solver_hist=hist, reuse_cache=cache,
             accum=state.accum.scatter(bucket, state.active, stats),
             step_idx=state.step_idx + state.active.to(torch.int64))
         if self.device.type == "cuda":

@@ -1,5 +1,5 @@
-"""Bytes-accurate EMA + MAC ledger for the full BK-SDM-Tiny geometry
-(copy of ``repro.diffusion.ledger``, UNet family only).
+"""Bytes-accurate EMA + MAC ledger for the full BK-SDM-Tiny and DiT-S/2
+geometries (copy of ``repro.diffusion.ledger``).
 
 The paper's evaluation is energy / throughput / external-memory-access, so
 the reproduction target is this ledger: it walks the exact UNet
@@ -25,6 +25,7 @@ import dataclasses
 from typing import Iterable, Optional
 
 from repro_torch.core.energy import EnergyReport, LayerTraffic, report
+from repro_torch.diffusion.denoiser import family_of
 from repro_torch.diffusion.unet import UNetConfig
 
 ACT_BYTES = 1.5        # INT12
@@ -205,15 +206,56 @@ def unet_ledger(cfg: UNetConfig,
     return entries
 
 
-def iteration_report(cfg: UNetConfig,
+def dit_ledger(cfg, opts: LedgerOptions = LedgerOptions()) -> list:
+    """Every LayerTraffic entry of ONE DiT iteration (full geometry).
+
+    ``cfg`` is a ``repro_torch.diffusion.dit.DiTConfig``.  The patch
+    embedding and the final projection are the only stages outside the
+    blocks; each block is ``_transformer_traffic`` at the one token
+    resolution, so the SAS / CAS / FFN accounting and the points where the
+    measured ratios enter are the UNet's.
+    """
+    b = opts.batch
+    g = cfg.latent_size // cfg.patch
+    d = cfg.hidden_size
+    t = g * g * b
+    pe = cfg.patch * cfg.patch * cfg.in_channels
+    po = cfg.patch * cfg.patch * cfg.out_channels
+    entries = [LayerTraffic(
+        name="patch_embed", stage="cnn",
+        weight_bytes=pe * d * WEIGHT_BYTES,
+        act_in_bytes=cfg.latent_size ** 2 * cfg.in_channels * b * ACT_BYTES,
+        act_out_bytes=t * d * ACT_BYTES,
+        macs_high=t * pe * d)]
+    for i in range(cfg.depth):
+        entries.extend(_transformer_traffic(f"block{i}", g, d, cfg, opts))
+    entries.append(LayerTraffic(
+        name="final_layer", stage="cnn",
+        weight_bytes=d * po * WEIGHT_BYTES,
+        act_in_bytes=t * d * ACT_BYTES,
+        act_out_bytes=cfg.latent_size ** 2 * cfg.out_channels * b * ACT_BYTES,
+        macs_high=t * d * po))
+    return entries
+
+
+def denoiser_ledger(cfg, opts: LedgerOptions = LedgerOptions()) -> list:
+    """The family's per-iteration ledger, the family resolved through the
+    denoiser registry (``denoiser.family_of``)."""
+    return _FAMILY_LEDGERS[family_of(cfg)](cfg, opts)
+
+
+_FAMILY_LEDGERS = {"unet": unet_ledger, "dit": dit_ledger}
+
+
+def iteration_report(cfg,
                      opts: LedgerOptions = LedgerOptions()) -> EnergyReport:
-    return report(unet_ledger(cfg, opts))
+    return report(denoiser_ledger(cfg, opts))
 
 
-def generation_report(cfg: UNetConfig, per_iter_opts: Iterable[LedgerOptions]
+def generation_report(cfg, per_iter_opts: Iterable[LedgerOptions]
                       ) -> EnergyReport:
-    """Whole text-to-image run: one UNet ledger per iteration."""
+    """Whole text-to-image run: one denoiser ledger per iteration."""
     entries = []
     for opts in per_iter_opts:
-        entries.extend(unet_ledger(cfg, opts))
+        entries.extend(denoiser_ledger(cfg, opts))
     return report(entries)

@@ -1,7 +1,9 @@
 """Text-to-image pipeline and the energy report (port of
 ``repro.diffusion.pipeline``).
 
-Stages: text encoding -> denoising loop -> VAE decode.  The run measures
+Stages: text encoding -> denoising loop -> VAE decode, the denoiser
+resolved from ``cfg.unet`` (a UNet or a DiT config) by
+``denoiser.make_denoiser``.  The run measures
 per-resolution PSSA compression ratios and per-iteration TIPS
 low-precision ratios, which drive the full-geometry analytic ledger to the
 paper's headline numbers (EMA GB/iter, mJ/iter).  Slot serving reports
@@ -20,21 +22,21 @@ import torch
 from repro_torch.core import energy, pssa
 from repro_torch.diffusion import ledger as L
 from repro_torch.diffusion import solvers as solvers_mod
+from repro_torch.diffusion.denoiser import make_denoiser
 from repro_torch.diffusion.sampler import DDIMConfig, sample
 from repro_torch.diffusion.stats import (UNetStats, attn_layer_order,
                                          coerce_per_step_stats)
 from repro_torch.diffusion.text_encoder import (TextEncoderConfig,
                                                 encode_text,
                                                 init_text_encoder_params)
-from repro_torch.diffusion.unet import (UNetConfig, init_unet_params,
-                                        unet_forward)
+from repro_torch.diffusion.unet import UNetConfig
 from repro_torch.diffusion.vae import VAEConfig, decode, init_vae_params
 from repro_torch.kernels.runtime import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    unet: UNetConfig = UNetConfig()
+    unet: UNetConfig = UNetConfig()   # any denoiser config (UNet or DiT)
     text: TextEncoderConfig = TextEncoderConfig()
     vae: VAEConfig = VAEConfig()
     ddim: DDIMConfig = DDIMConfig()
@@ -50,13 +52,16 @@ class PipelineConfig:
         )
 
 
-def init_params(cfg: PipelineConfig, generator=None, device="cpu") -> dict:
-    """Random text-encoder, UNet and VAE parameters on ``device``."""
+def init_params(cfg: PipelineConfig, generator=None, device=None) -> dict:
+    """Random text-encoder, denoiser and VAE parameters on ``device``
+    (``None``: the card); the denoiser's stay under the key ``"unet"``
+    whatever its family."""
+    device = resolve_device(device)
     if cfg.text.d_model != cfg.unet.context_dim:
-        raise ValueError(f"text d_model {cfg.text.d_model} != UNet "
+        raise ValueError(f"text d_model {cfg.text.d_model} != denoiser "
                          f"context_dim {cfg.unet.context_dim}")
     return {"text": init_text_encoder_params(cfg.text, generator, device),
-            "unet": init_unet_params(cfg.unet, generator, device),
+            "unet": make_denoiser(cfg.unet).init_params(generator, device),
             "vae": init_vae_params(cfg.vae, generator, device)}
 
 
@@ -78,6 +83,7 @@ class StableDiffusionPipeline:
                  generator=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.denoiser = make_denoiser(cfg.unet)
         if params is None:
             params = init_params(cfg, generator or _default_generator(
                 self.device), self.device)
@@ -86,8 +92,8 @@ class StableDiffusionPipeline:
         self.vae_params = params["vae"]
 
     def _unet(self, lat, t, ctx, active):
-        return unet_forward(self.unet_params, lat, t, ctx, self.cfg.unet,
-                            tips_active=active)
+        return self.denoiser.apply(self.unet_params, lat, t, ctx,
+                                   tips_active=active)
 
     @torch.no_grad()
     def generate(self, prompt_tokens, generator=None, uncond_tokens=None,
@@ -227,6 +233,20 @@ def aggregated_reuse_ratios_per_iter(cfg: PipelineConfig,
     return out
 
 
+def reuse_ratios_from_accum(cfg: PipelineConfig, accum) -> list:
+    """Per-iteration realized temporal-reuse ratio from a ``LedgerAccum``:
+    ``1 - computed/total`` over the bucket's reuse counters summed across
+    layers and accounted rows.  Integers in, one division out, so slot
+    count and admission order cannot move it.  A bucket with no reuse
+    work (a dense run, a step not reached yet) reads 0.0."""
+    comp, tot = accum.reuse_computed.cpu(), accum.reuse_total.cpu()
+    out = []
+    for i in range(cfg.ddim.num_inference_steps):
+        t = float(tot[i].sum())
+        out.append(0.0 if t == 0.0 else 1.0 - float(comp[i].sum()) / t)
+    return out
+
+
 def _report_from_terms(cfg: PipelineConfig, per_iter_terms,
                        full_geometry: bool = True,
                        num_steps: Optional[int] = None,
@@ -238,7 +258,9 @@ def _report_from_terms(cfg: PipelineConfig, per_iter_terms,
     baseline) bytes: the shared tail of the per-call stats path and the
     accumulator path.  ``num_steps`` / ``tips_flags``: a policy's budget
     and per-iteration TIPS activity (default: the config's schedule and
-    ``i < tips_active_iters``); ``cfg.unet.tips`` still gates both.
+    ``i < tips_active_iters``); ``cfg.unet.tips`` still gates both.  The
+    geometry is the family's ``full_geometry()`` and its measured ratios
+    are keyed by ``attn_resolutions()`` (denoiser-contract hooks).
     """
     n = cfg.ddim.num_inference_steps if num_steps is None else num_steps
     if len(per_iter_terms) != n:

@@ -15,7 +15,8 @@ iterations.
                    the slot runtime's step (``DiffusionEngine.slot_step``).
 ``sample_scan_reuse`` — the same loop with the temporal-reuse cache,
                    carried from step to step (temporal mode) or read from
-                   a base request's recorded per-step caches (edit mode).
+                   a base request's recorded per-step caches (edit mode);
+                   a ``SamplerPolicy`` (and bank) composes with both.
 """
 from __future__ import annotations
 
@@ -275,7 +276,9 @@ def sample_scan(unet_apply, latents, context, uncond_context,
 
 def sample_scan_reuse(unet_apply, latents, context, uncond_context,
                       cfg: DDIMConfig, reuse_cache=None, stats_rows=None,
-                      base_caches=None, record_caches: bool = False):
+                      base_caches=None, record_caches: bool = False,
+                      sampler_policy=None, sampler_bank=None,
+                      policy_id=None):
     """All denoising steps with the temporal-reuse cache threaded.
 
     * **temporal** — ``reuse_cache`` (typically the all-invalid
@@ -287,6 +290,13 @@ def sample_scan_reuse(unet_apply, latents, context, uncond_context,
       ``i`` reuses the base's step-``i`` activations, which are valid
       from step 0, so ``capacity < 1`` is safe.
 
+    ``sampler_policy`` (and ``sampler_bank``) compose with both modes as
+    in :func:`sample_scan`: the banked :func:`denoise_step`, the solver
+    history carried beside the cache.  ``policy_id`` (B,) overrides the
+    rows' bank index (default: the policy's).  In edit mode the base
+    caches must come from a run of the same policy (they are indexed by
+    step).
+
     Returns ``(latents, stacked UNetStats)`` with per-layer reuse
     counters (plus the recorded caches when asked).
     """
@@ -297,7 +307,19 @@ def sample_scan_reuse(unet_apply, latents, context, uncond_context,
         raise ValueError(
             "pass exactly one of reuse_cache (temporal mode) or "
             "base_caches (edit mode)")
-    n = cfg.num_inference_steps
+    if sampler_bank is not None and sampler_policy is None:
+        raise ValueError("sampler_bank requires sampler_policy (the "
+                         "bank entry to run every row under)")
+    bank = hist = None
+    if sampler_policy is not None:
+        bank, n, pid0 = _resolve_bank(sampler_policy, sampler_bank)
+        if policy_id is None:
+            policy_id = torch.full((b,), pid0, dtype=torch.int64,
+                                   device=latents.device)
+        hist = solvers_mod.init_history(bank, b, latents.shape[1:],
+                                        latents.device)
+    else:
+        n = cfg.num_inference_steps
     if base_caches is not None and len(base_caches) != n:
         raise ValueError(f"base_caches holds {len(base_caches)} steps, the "
                          f"schedule {n}")
@@ -306,9 +328,15 @@ def sample_scan_reuse(unet_apply, latents, context, uncond_context,
     for i in range(n):
         if base_caches is not None:
             cache = base_caches[i]
-        latents, stats, cache = denoise_step(
-            unet_apply, latents, context, uncond_context, i, cfg,
-            stats_rows=stats_rows, reuse_cache=cache)
+        if bank is not None:
+            latents, stats, cache, hist = denoise_step(
+                unet_apply, latents, context, uncond_context, i, cfg,
+                stats_rows=stats_rows, reuse_cache=cache, bank=bank,
+                policy_id=policy_id, solver_hist=hist)
+        else:
+            latents, stats, cache = denoise_step(
+                unet_apply, latents, context, uncond_context, i, cfg,
+                stats_rows=stats_rows, reuse_cache=cache)
         per_step.append(stats)
         if record_caches:
             caches.append(cache)

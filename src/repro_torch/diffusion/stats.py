@@ -37,23 +37,10 @@ class LayerKey:
 
 
 def attn_layer_order(cfg) -> Tuple[LayerKey, ...]:
-    """Transformer blocks in forward-traversal order (mirrors
-    ``unet_forward``): down stages, optional mid block, up stages."""
-    order = []
-    nstages = len(cfg.block_channels)
-    for i, has_attn in enumerate(cfg.down_attn):
-        if not has_attn:
-            continue
-        for r in range(cfg.resnets_per_down):
-            order.append(LayerKey(f"down{i}.{r}", cfg.latent_size >> i))
-    if cfg.has_mid_block:
-        order.append(LayerKey("mid", cfg.latent_size >> (nstages - 1)))
-    for j, i in enumerate(reversed(range(nstages))):
-        if not cfg.down_attn[i]:
-            continue
-        for r in range(cfg.resnets_per_up):
-            order.append(LayerKey(f"up{j}.{r}", cfg.latent_size >> i))
-    return tuple(order)
+    """Transformer blocks in forward-traversal order: the canonical order
+    of every stats object, ``LedgerAccum`` column and reuse-cache layer,
+    from the denoiser config's ``layer_order()`` hook."""
+    return cfg.layer_order()
 
 
 def _map(fn, nt):

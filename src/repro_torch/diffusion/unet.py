@@ -1,5 +1,6 @@
 """BK-SDM-Tiny UNet with PSSA / TIPS / DBSC (port of
-``repro.diffusion.unet``: the dense path and temporal patch reuse).
+``repro.diffusion.unet``: the dense path, temporal patch reuse and the
+denoiser-contract hooks; registered as family ``"unet"``).
 
 SD-v1 block layout with one resnet + one transformer block per down stage,
 two per up stage and no mid block.  Each transformer block runs PSSA
@@ -10,6 +11,9 @@ FFN whose rows run INT12/INT6 per the TIPS mask; every stage goes through
 input changed (``repro_torch.core.reuse``).  Slot serving asks for per-row
 counters (``row_stats`` -> ``SlotStats``) and passes phase-scheduled
 per-row threshold scales (``overrides``, a ``solvers.PhaseOverrides``).
+``_transformer_block`` is also the DiT family's block
+(``repro_torch.diffusion.dit``), which conditions it on the timestep
+through the ``modulation`` hook.
 
 Layouts: activations are NHWC at the public functions, as in the JAX
 package.  Parameters are a nested dict in the JAX layout with one change:
@@ -30,10 +34,11 @@ import torch.nn.functional as F
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.reuse import (LayerReuseCache, ReuseCache, ReusePolicy,
                                     ReuseRowCounters, window_patch_mask)
-from repro_torch.diffusion.stats import (SlotStats, UNetStats,
+from repro_torch.diffusion.stats import (LayerKey, SlotStats, UNetStats,
                                          attn_layer_order)
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.dispatch import KernelPolicy
+from repro_torch.kernels.runtime import resolve_device
 from repro_torch.kernels.patch_reuse import ops as reuse_ops
 
 
@@ -86,6 +91,32 @@ class UNetConfig:
         return tuple(sorted({self.latent_size >> s
                              for s, a in enumerate(self.down_attn) if a},
                             reverse=True))
+
+    # --- denoiser-contract hooks (repro_torch.diffusion.denoiser) ---
+    def layer_order(self) -> tuple:
+        """The stats layer order of this config (``stats.LayerKey``s), as
+        ``unet_forward`` visits the blocks: down stages, optional mid
+        block, up stages."""
+        order = []
+        nstages = len(self.block_channels)
+        for i, has_attn in enumerate(self.down_attn):
+            if not has_attn:
+                continue
+            for r in range(self.resnets_per_down):
+                order.append(LayerKey(f"down{i}.{r}", self.latent_size >> i))
+        if self.has_mid_block:
+            order.append(LayerKey("mid", self.latent_size >> (nstages - 1)))
+        for j, i in enumerate(reversed(range(nstages))):
+            if not self.down_attn[i]:
+                continue
+            for r in range(self.resnets_per_up):
+                order.append(LayerKey(f"up{j}.{r}", self.latent_size >> i))
+        return tuple(order)
+
+    def channels_at(self, resolution: int) -> int:
+        """Token width of the transformer blocks at ``resolution``."""
+        stage = (self.latent_size // resolution).bit_length() - 1
+        return self.block_channels[stage]
 
 
 # ----------------------------------------------------------------------------
@@ -182,8 +213,9 @@ def _transformer_p(ini: _Init, c, cfg: UNetConfig):
     }
 
 
-def init_unet_params(cfg: UNetConfig, generator=None, device="cpu"):
-    ini = _Init(generator, device)
+def init_unet_params(cfg: UNetConfig, generator=None, device=None):
+    """Random parameters on ``device`` (``None``: the card)."""
+    ini = _Init(generator, resolve_device(device))
     chans = cfg.block_channels
     p = {"time_mlp1": ini.lin(chans[0], cfg.time_dim),
          "time_mlp2": ini.lin(cfg.time_dim, cfg.time_dim),
@@ -253,9 +285,13 @@ def _merge_heads(x):
 
 
 def _reuse_plan(x2d, reuse, cfg: UNetConfig, policy: KernelPolicy,
-                stats_rows):
+                stats_rows, reuse_scale=None):
     """The reuse branch's plan for one block: (token rows (B, R), gate
-    per row (B, R), ReuseRowCounters, token input (B, T, C))."""
+    per row (B, R), ReuseRowCounters, token input (B, T, C)).
+
+    ``reuse_scale`` ((B,) or None) scales the threshold per row: the
+    patch delta then runs at threshold 0 (the same values) and is
+    compared with ``threshold * scale`` here."""
     rp, cache, valid = reuse
     b, res, wid, c = x2d.shape
     tokens_in = x2d.reshape(b, res * wid, c)
@@ -266,6 +302,10 @@ def _reuse_plan(x2d, reuse, cfg: UNetConfig, policy: KernelPolicy,
                                  cfg.latent_size)
         changed = torch.tensor(mask, dtype=torch.bool,
                                device=x2d.device)[None].expand(b, -1)
+    elif reuse_scale is not None:
+        delta, _ = dispatch.patch_delta(policy, tokens_in, cache.ref,
+                                        patch=patch, threshold=0.0)
+        changed = delta >= (rp.threshold * reuse_scale)[:, None]
     else:
         _, changed = dispatch.patch_delta(policy, tokens_in, cache.ref,
                                           patch=patch,
@@ -286,11 +326,15 @@ def _reuse_plan(x2d, reuse, cfg: UNetConfig, policy: KernelPolicy,
     return rows, gate_rows, counters, tokens_in
 
 
+_STAGES = {"sa": 0, "ca": 1, "ffn": 2}    # modulation triples, in order
+
+
 def _transformer_block(x2d, p, context, cfg: UNetConfig, tips_active,
                        stats_rows=None, dup_after_self: bool = False,
                        policy: KernelPolicy | None = None,
                        precision: PrecisionPolicy | None = None,
-                       reuse=None, row_stats: bool = False, overrides=None):
+                       reuse=None, row_stats: bool = False, overrides=None,
+                       modulation=None):
     """x2d: (B, H, W, C) -> (out, PSSAStats, TIPSResult, reuse_out).
 
     ``tips_active``: a bool or a (B,) per-row bool tensor.  ``stats_rows``
@@ -314,16 +358,21 @@ def _transformer_block(x2d, p, context, cfg: UNetConfig, tips_active,
     threshold SCALES for the request rows, tiled to [cond | uncond] where
     the hidden state is; a lane the bank never schedules is None, which
     leaves the block's ops and kernel routing exactly as without it.
+    The ``reuse_scale`` lane scales each row's reuse threshold.
+
+    ``modulation`` (the DiT family's adaLN; None for the UNet): nine
+    (B, 1, C) vectors, (shift, scale, gate) for the self-attention, the
+    cross-attention and the FFN in that order.  After each stage's layer
+    norm the hidden state becomes ``hn * (1 + scale) + shift``, and the
+    stage's output is multiplied by ``gate`` before the residual add (and
+    before the reuse scatter, so the cache holds gated outputs).  They
+    carry request rows and are tiled to [cond | uncond] as the override
+    lanes are.
     """
     b, hgt, wid, c = x2d.shape
     heads = cfg.num_heads
     policy = cfg.kernel_policy if policy is None else policy
     precision = cfg.precision if precision is None else precision
-    if (reuse is not None and overrides is not None
-            and overrides.reuse_scale is not None):
-        raise NotImplementedError(
-            "the reuse_scale lane of a phase schedule is not ported yet "
-            "(ROADMAP Queue 1 item 2)")
 
     def per_rows(vec, nrows):
         # override lanes are per REQUEST row; tile to [cond | uncond]
@@ -334,15 +383,27 @@ def _transformer_block(x2d, p, context, cfg: UNetConfig, tips_active,
     def gather(x):
         return x if reuse is None else reuse_ops.gather_rows(x, rows)
 
-    def scatter(stage, x):
+    def stage_out(stage, x):
+        # DiT gates the stage; under reuse the result goes over the cache
+        if modulation is not None:
+            x = x * per_rows(modulation[3 * _STAGES[stage] + 2], x.shape[0])
         if reuse is None:
             return x
         return reuse_ops.scatter_rows(getattr(reuse[1], stage), rows, x,
                                       gate_rows)
 
+    def modulate(stage, hn):
+        if modulation is None:
+            return hn
+        i = 3 * _STAGES[stage]
+        return (hn * (1.0 + per_rows(modulation[i + 1], hn.shape[0]))
+                + per_rows(modulation[i], hn.shape[0]))
+
     if reuse is not None:
+        reuse_scale = (None if overrides is None
+                       else per_rows(overrides.reuse_scale, b))
         rows, gate_rows, counters, tokens_in = _reuse_plan(
-            x2d, reuse, cfg, policy, stats_rows)
+            x2d, reuse, cfg, policy, stats_rows, reuse_scale)
 
     h = group_norm(x2d, p["norm_in"]["scale"], p["norm_in"]["bias"],
                    cfg.groups).reshape(b, hgt * wid, c)
@@ -351,7 +412,7 @@ def _transformer_block(x2d, p, context, cfg: UNetConfig, tips_active,
     # --- self-attention (PSSA); under reuse the queries are gathered to
     # the active patch rows and K/V stay dense ---
     resid = h
-    hn = layer_norm(h, p["ln1"]["scale"], p["ln1"]["bias"])
+    hn = modulate("sa", layer_norm(h, p["ln1"]["scale"], p["ln1"]["bias"]))
     q = _attn_heads(gather(hn), p["sa_q"]["w"], heads)
     k = _attn_heads(hn, p["sa_k"]["w"], heads)
     v = _attn_heads(hn, p["sa_v"]["w"], heads)
@@ -367,7 +428,7 @@ def _transformer_block(x2d, p, context, cfg: UNetConfig, tips_active,
                                  else stats_rows,
                                  reference_stats=cfg.pssa_stats_reference,
                                  row_stats=row_stats)
-    sa_full = scatter("sa", _merge_heads(sa.out) @ p["sa_o"]["w"]
+    sa_full = stage_out("sa", _merge_heads(sa.out) @ p["sa_o"]["w"]
                       + p["sa_o"]["b"])
     h = resid + sa_full
 
@@ -383,7 +444,7 @@ def _transformer_block(x2d, p, context, cfg: UNetConfig, tips_active,
 
     # --- cross-attention (TIPS CAS source) ---
     resid = h
-    hn = layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"])
+    hn = modulate("ca", layer_norm(h, p["ln2"]["scale"], p["ln2"]["bias"]))
     q = _attn_heads(gather(hn), p["ca_q"]["w"], heads)
     kt = _attn_heads(context, p["ca_k"]["w"], heads)
     vt = _attn_heads(context, p["ca_v"]["w"], heads)
@@ -392,13 +453,14 @@ def _transformer_block(x2d, p, context, cfg: UNetConfig, tips_active,
     ca = dispatch.cross_attention(policy, q, kt, vt, precision=precision,
                                   stats_rows=stats_rows, row_stats=row_stats,
                                   threshold_scale=tips_scale)
-    ca_full = scatter("ca", _merge_heads(ca.out) @ p["ca_o"]["w"]
+    ca_full = stage_out("ca", _merge_heads(ca.out) @ p["ca_o"]["w"]
                       + p["ca_o"]["b"])
     h = resid + ca_full
 
     # --- FFN (GEGLU) with TIPS mixed precision ---
     resid = h
-    hn = layer_norm(h, p["ln3"]["scale"], p["ln3"]["bias"])
+    hn = modulate("ffn", layer_norm(h, p["ln3"]["scale"],
+                                    p["ln3"]["bias"]))
     important = None
     if cfg.tips:
         active = torch.as_tensor(tips_active, device=h.device)
@@ -410,7 +472,7 @@ def _transformer_block(x2d, p, context, cfg: UNetConfig, tips_active,
         # under reuse ca.important_full lives on the gathered rows
         important = torch.logical_or(ca.important_full,
                                      torch.logical_not(active))
-    ffn_full = scatter("ffn", dispatch.ffn_geglu(policy, gather(hn), p,
+    ffn_full = stage_out("ffn", dispatch.ffn_geglu(policy, gather(hn), p,
                                                  important,
                                                  precision=precision))
     h = resid + ffn_full
@@ -540,3 +602,17 @@ def unet_forward(params, latents, timesteps, context, cfg: UNetConfig,
                                layers=tuple(new_layer_caches))
         return eps, stats, new_cache
     return eps, stats
+
+
+def abstract_unet_params(cfg: UNetConfig):
+    """The parameter tree's shapes and dtypes, on the meta device (no
+    storage allocated)."""
+    return init_unet_params(cfg, None, "meta")
+
+
+# --- denoiser-contract registration (repro_torch.diffusion.denoiser) ---
+from repro_torch.diffusion import denoiser as _denoiser  # noqa: E402
+
+_denoiser.register_family(_denoiser.FamilySpec(
+    family="unet", config_cls=UNetConfig, init_params=init_unet_params,
+    forward=unet_forward, abstract_params=abstract_unet_params))

@@ -51,13 +51,15 @@ def cuda():
 
 # (BH, T, d, patch, q scale, threshold): d = 13 pads to 16 columns; d = 80
 # at T = 1024 is res 32's width; q x 6 makes the rows peaky, so most keys
-# are pruned; threshold 0 keeps every key.
+# are pruned; threshold 0 keeps every key.  DiT-S/2's head dim 64 at
+# T = 256: BH 6 in block 0 (before the CFG tiling) and 12 after it.
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("bh,t,d,patch,qscale,thr", [
     (4, 256, 40, 16, 1.0, THR), (2, 48, 8, 16, 1.0, THR),
     (2, 128, 160, 64, 1.0, THR), (2, 48, 13, 16, 1.0, THR),
     (2, 1024, 80, 64, 1.0, THR), (4, 256, 40, 16, 6.0, THR),
-    (2, 128, 40, 64, 1.0, 0.0)])
+    (2, 128, 40, 64, 1.0, 0.0), (6, 256, 64, 16, 1.0, THR),
+    (12, 256, 64, 16, 1.0, THR)])
 def test_pssa_kernel_matches_plain(cuda, bh, t, d, patch, qscale, thr):
     g = torch.Generator(device=cuda).manual_seed(t + d)
     q, k, v = (torch.randn((bh, t, d), generator=g, device=cuda)
@@ -94,7 +96,7 @@ def test_pssa_kernel_gathered_queries_match_plain(cuda, bh, tq, tk, d,
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("b,p,w", [(2, 64, 20480), (1, 16, 20480),
-                                   (3, 7, 2050), (2, 5, 3)])
+                                   (3, 7, 2050), (2, 5, 3), (2, 16, 6144)])
 def test_patch_delta_kernel_matches_plain(cuda, b, p, w):
     g = torch.Generator(device=cuda).manual_seed(p * w)
     x = torch.randn((b, p, w), generator=g, device=cuda)
@@ -129,10 +131,10 @@ def test_patch_bitmap_kernel_matches_plain(cuda, rows, tk, patch):
 # (BH, Tq, Tk, d): the main path's three shapes (res 64, 32, 16 under
 # CFG); one key, one 8-key n-tile and the most keys; the narrowest d and
 # the widest; one query row, and Tq = 100, not a multiple of the kernel's
-# 16-row warp tile.
+# 16-row warp tile; DiT-S/2 under CFG (2 rows x 6 heads, d = 64).
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("bh,tq,tk,d", [
-    (4, 256, 77, 40), (2, 100, 7, 8),
+    (4, 256, 77, 40), (2, 100, 7, 8), (12, 256, 77, 64),
     (16, 4096, 77, 40), (16, 1024, 77, 80), (16, 256, 77, 160),
     (2, 100, 1, 40), (2, 100, 8, 40), (2, 100, 128, 40),
     (2, 64, 77, 8), (2, 64, 77, 160), (3, 1, 77, 40)])
@@ -162,11 +164,11 @@ def test_cross_kernel_cls_index(cuda, tk, cls_index):
     torch.testing.assert_close(cas, cas_p, rtol=0, atol=1e-6)
 
 
-# (B, H, Tq, d): res 64 and res 16 under CFG, and d = 13 (odd rows: the
-# kernel's 4-byte copies and scalar loads and stores)
+# (B, H, Tq, d): res 64 and res 16 under CFG, d = 13 (odd rows: the
+# kernel's 4-byte copies and scalar loads and stores), and DiT-S/2
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("b,h,tq,d", [(2, 8, 4096, 40), (2, 8, 256, 160),
-                                      (1, 3, 100, 13)])
+                                      (1, 3, 100, 13), (2, 6, 256, 64)])
 def test_cross_op_reads_the_head_split_views(cuda, b, h, tq, d):
     """The op on the views the UNet's head split makes: out equals the
     contiguous 3-D call's bit for bit, and the head merge is a view of
@@ -219,6 +221,8 @@ BITSLICE_CASES = {
     "unaligned planes": (96, 64, 64, "offset", "mixed"),
     "res16 ff_geglu": (512, 1280, 10240, "random", "mixed"),
     "res16 ff_out": (512, 5120, 1280, "random", "mixed"),
+    "dit ff_geglu": (512, 384, 3072, "random", "mixed"),
+    "dit ff_out": (512, 1536, 384, "random", "mixed"),
     "corner w=-128": (64, 5120, 64, -128, "ones"),
     "corner w=127": (64, 5120, 64, 127, "ones"),
     "prec all 0": (256, 320, 256, "random", "zeros"),
@@ -417,6 +421,83 @@ def test_smoke_pssa_scale_bank_takes_the_plain_route(cuda):
     assert torch.equal(state.latents, plain.latents)
     for f in ("nnz", "ones_xor", "imp", "rows"):
         assert torch.equal(getattr(state.accum, f), getattr(plain.accum, f))
+
+
+@pytest.mark.requires_cuda
+def test_smoke_dit_slot_step_under_reuse_goes_through_the_kernels(cuda):
+    """A DiT slot step under temporal reuse on the slice route launches
+    each kernel once a block (the bit-slice matmul twice): PSSA,
+    cross-attention, the bit-slice matmul and the patch delta; a valid
+    cache at a threshold nothing reaches computes no patch."""
+    from repro_torch.configs import dit_s
+    cfg = dataclasses.replace(_guided_smoke(SLICE), unet=dataclasses.replace(
+        dit_s.SMOKE.unet, kernel_policy=dataclasses.replace(
+            SLICE, reuse="kernel"), reuse_policy=ReusePolicy.temporal(1e9)))
+    eng = DiffusionEngine(cfg)
+    blocks = cfg.unet.depth
+    state = eng.init_slots(2)
+    for s, (toks, un, lat) in enumerate(_slot_requests(cuda, cfg, 2, 4)):
+        state = eng.admit(state, s, toks, uncond_tokens=un, latents=lat)
+    runtime.reset_launch_counts()
+    for step in (1, 2):
+        state = eng.slot_step(state)
+        counts = runtime.launch_counts()
+        assert counts["pssa_attention"] == blocks * step
+        assert counts["cross_attention_tips"] == blocks * step
+        assert counts["bitslice_matmul"] == 2 * blocks * step
+        assert counts["patch_delta"] == blocks * step
+    comp, tot = state.accum.reuse_computed, state.accum.reuse_total
+    assert torch.equal(comp[0], tot[0]) and int(tot[1].sum()) > 0
+    assert int(comp[1].sum()) == 0
+    assert bool(torch.isfinite(state.latents).all())
+
+
+# ROADMAP Queue 3: cuBLAS picks its fp32 GEMM by the shape, so at these
+# shapes of the UNet (the time projection at 1280 channels, res-16
+# projections and the text K/V projection at 4 slots under CFG) and of
+# DiT (its projections at 4 slots) a row's bits follow the row count.
+# While this holds, slot rows equal one-shot rows only at equal batch.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("m,k,n", [(8, 1280, 1280), (2048, 1280, 1280),
+                                   (616, 768, 320), (2048, 384, 384)])
+def test_cublas_gemm_rows_follow_the_row_count(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    w = torch.randn((k, n), generator=g, device=cuda)
+    assert not torch.equal((x @ w)[:m // 2], x[:m // 2] @ w)
+    assert torch.equal(x @ w, x @ w)            # the same shape repeats
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("family", ["unet", "dit"])
+def test_smoke_slots_under_reuse_equal_one_shot_at_equal_shape(cuda,
+                                                                family):
+    """Two requests through 4 slots under temporal reuse on the fused
+    attention + float FFN route: each row bit-equal to generate of the
+    two tiled to 4 rows, and the reuse buckets half the one-shot run's."""
+    from repro_torch.configs import dit_s
+    pol = KernelPolicy(self_attention="fused", cross_attention="fused",
+                       reuse="kernel")
+    cfg = _guided_smoke(pol)
+    if family == "dit":
+        cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
+            dit_s.SMOKE.unet, kernel_policy=pol))
+    cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
+        cfg.unet, reuse_policy=ReusePolicy.temporal(1.0)))
+    eng = DiffusionEngine(cfg)
+    reqs = _slot_requests(cuda, cfg, 2, 5)
+    state = eng.init_slots(4)
+    for s, (toks, un, lat) in enumerate(reqs):
+        state = eng.admit(state, s, toks, uncond_tokens=un, latents=lat)
+    while not eng.finished_slots(state):
+        state = eng.slot_step(state)
+    take = reqs * 2
+    out = eng.generate(torch.cat([r[0] for r in take]),
+                       uncond_tokens=torch.cat([r[1] for r in take]),
+                       latents=torch.cat([r[2] for r in take]))
+    assert torch.equal(state.latents[:2], out.latents[:2])
+    comp = sum(c.computed.to(torch.int64).sum(1) for c in out.stats.reuse)
+    assert torch.equal(2 * state.accum.reuse_computed.sum(1), comp)
 
 
 def _ssd_inputs(cuda, bh, t, p, n, heads, dt_scale, seed):

@@ -30,7 +30,10 @@ print("NEW", sorted(n for n in sys.modules
                                      "repro_torch.configs.",
                                      "repro_torch.models.",
                                      "repro_torch.kernels.ssd_scan.",
-                                     "repro_torch.launch."))))
+                                     "repro_torch.launch.",
+                                     "repro_torch.diffusion.denoiser",
+                                     "repro_torch.diffusion.dit",
+                                     "repro_torch.configs.dit_s"))))
 print("BAD", bad)
 """
 
@@ -49,7 +52,8 @@ def test_port_imports_neither_jax_nor_repro():
         for mod in ("kernel", "ops", "ref"):
             assert f"repro_torch.kernels.{kern}.{mod}" in new
     for mod in ("configs.base", "configs.mamba2_130m", "models.layers",
-                "models.ssm", "models.transformer", "launch.serve"):
+                "models.ssm", "models.transformer", "launch.serve",
+                "diffusion.denoiser", "diffusion.dit", "configs.dit_s"):
         assert f"repro_torch.{mod}" in new
 
 

@@ -469,9 +469,17 @@ def test_admit_cfg_contract(jax_engine):
         eng.init_slots(0)
 
 
-def test_init_slots_raises_under_reuse(jax_engine):
+def test_init_slots_serves_under_reuse(jax_engine):
+    """The call that raised before temporal reuse was ported under slots
+    now builds an all-invalid per-slot cache and serves a step."""
     cfg = dataclasses.replace(t_bk.SMOKE, unet=dataclasses.replace(
         t_bk.SMOKE.unet, reuse_policy=ReusePolicy.temporal()))
     eng = TEngine(cfg, device="cpu", params=jax_engine[1])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        eng.init_slots(2)
+    state = eng.init_slots(2)
+    assert len(state.reuse_cache.layers) == 9
+    assert not bool(state.reuse_cache.valid.any())
+    toks = torch.zeros((1, 8), dtype=torch.int32)
+    state = eng.slot_step(eng.admit(state, 0, toks))
+    assert bool(state.reuse_cache.valid.all())
+    assert int(state.accum.reuse_computed[0].sum()) == int(
+        state.accum.reuse_total[0].sum()) > 0

@@ -338,7 +338,7 @@ def eng():
     cfg = dataclasses.replace(cfg, ddim=dataclasses.replace(
         cfg.ddim, guidance_scale=7.5))
     return DiffusionEngine(cfg, device="cpu", params=init_params(
-        cfg, torch.Generator().manual_seed(0)))
+        cfg, torch.Generator().manual_seed(0), "cpu"))
 
 
 def _request(cfg, seed):
