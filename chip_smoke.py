@@ -63,26 +63,36 @@ no result line):
                  two steps on three seeds, each kernel on one DiT step's
                  inputs (held and timed), a banked slot drain on 2 and 4
                  slots bit-equal to one-shot, temporal reuse;
-8. bitmap      — the PSXU entry point ``dispatch.patch_bitmap`` on the
+8. serving     — the serving front-end (``launch.scheduler``,
+                 ``launch.serve_diffusion``) at full width: eight
+                 requests through ``ContinuousScheduler`` and
+                 ``FixedBatchScheduler`` at 4 slots, at t = 0 on the slice
+                 route (images bit-equal across the two, 9/9/18 launches a
+                 step) and on a bursty trace on ``--kernels auto`` for
+                 BK-SDM and DiT-S/2 (latency percentiles, queue wait,
+                 goodput, occupancy; latents bit-equal to one-shot
+                 witnesses at batch 4, the ledger against theirs); then
+                 ``serve_diffusion.main`` in process at full width;
+9. bitmap      — the PSXU entry point ``dispatch.patch_bitmap`` on the
                  pruned SAS of one cond row at res 64/32/16 (full-width
                  weights): kernel against plain bit for bit, per-row sums
                  of the counts against the PSSA popcount, 3 launches;
-9. temporal    — the slice with temporal patch reuse: threshold 0 equals
+10. temporal   — the slice with temporal patch reuse: threshold 0 equals
                  the dense latents (as far as a dense witness agrees with
                  itself), threshold 0.05 launches 225/225/450/225;
-10. edit       — img2img replay at capacity 1/8 against recorded base
+11. edit       — img2img replay at capacity 1/8 against recorded base
                  caches: the same input computes nothing and returns the
                  base latents; a re-noised window stays within the cap and
                  runs PSSA on T/8 queries; an a-priori window runs no
                  patch delta;
-11. parity     — two full-width steps from the same latents, route against
+12. parity     — two full-width steps from the same latents, route against
                  route: the reference policy against the fused attention
                  kernels, then reference attention + DBSC against the
                  slice's route (fused + DBSC) on three seeds, then the
                  reference route against the fused route with temporal
                  reuse; latents, ledger headlines and per-layer PSSA and
                  reuse counters must agree within the limits below.
-12. serve      — mamba2-130m at full width (random weights from a seed)
+13. serve      — mamba2-130m at full width (random weights from a seed)
                  through ``repro_torch.launch.serve.serve``: batch 4, a
                  4096-token prompt, 64 greedy tokens, prefill's scan on the
                  ``ssd_scan`` kernel (24 launches, none in decode); the
@@ -2418,6 +2428,406 @@ def dit_phase(torch):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# serving: the schedulers and the serve_diffusion CLI at full width
+# ---------------------------------------------------------------------------
+SERVING_REQUESTS, SERVING_SLOTS, SERVING_BURST = 8, 4, 2
+SERVING_LOAD = 0.75          # (b), (c): arrival rate / the t = 0 drain's
+FLOAT_ROUTE_PER_STEP = {"pssa_attention": 9, "cross_attention_tips": 9,
+                        "bitslice_matmul": 0}
+DIT_FLOAT_PER_STEP = {"pssa_attention": 12, "cross_attention_tips": 12,
+                      "bitslice_matmul": 0}
+
+
+@contextlib.contextmanager
+def _decodes_seen(eng):
+    """Record each ``decode_slots`` call of ``eng``: its slots, their
+    latents and the decoded images (the scheduler keeps neither)."""
+    seen, orig = [], eng.decode_slots
+
+    def decode_slots(state, slots=None):
+        out = orig(state, slots)
+        slots = list(slots)
+        seen.append((slots, state.latents[slots].clone(), out))
+        return out
+    eng.decode_slots = decode_slots
+    try:
+        yield seen
+    finally:
+        del eng.decode_slots
+
+
+def _served_rows(torch, reqs, seen):
+    """Each request's (decode call, row) among the recorded decodes,
+    matched by its image."""
+    rows = {}
+    for c, (slots, _, imgs) in enumerate(seen):
+        host = imgs.cpu().numpy()
+        for j in range(len(slots)):
+            for r in reqs:
+                if r.rid not in rows and host[j].tobytes() == \
+                        r.image.tobytes():
+                    rows[r.rid] = (c, j)
+    require(sorted(rows) == [r.rid for r in reqs],
+            f"requests {sorted(rows)} matched to decodes")
+    return rows
+
+
+def _batch_witnesses(torch, eng, reqs, rows: int):
+    """One-shot ``generate`` of the requests in order, ``rows`` at a time
+    (the slot count: the card's GEMMs follow the row count)."""
+    outs = []
+    for i in range(0, len(reqs), rows):
+        chunk = reqs[i:i + rows]
+        outs.append(eng.generate(
+            torch.cat([r.tokens for r in chunk]),
+            uncond_tokens=torch.cat([r.uncond_tokens for r in chunk]),
+            latents=torch.cat([r.latents for r in chunk])))
+    return outs
+
+
+def _hold_served(torch, eng, label, reqs, seen, witnesses, rows: int):
+    """Each request's final latents bit-equal to its witness row, and
+    each recorded decode bit-equal to ``decode_slots`` of the same slots
+    holding the witnesses' latents (the same chunk sizes, the same rows
+    in each chunk)."""
+    import types
+    served = _served_rows(torch, reqs, seen)
+    wit = {r.rid: witnesses[r.rid // rows].latents[r.rid % rows]
+           for r in reqs}
+    by_call = {}
+    for r in reqs:
+        c, j = served[r.rid]
+        by_call.setdefault(c, {})[j] = r.rid
+        require(same_bits(torch, seen[c][1][j], wit[r.rid]),
+                f"{label} request {r.rid}: latents differ from the batch-"
+                f"{rows} witness")
+    sizes = {}
+    for c, (slots, lats, imgs) in enumerate(seen):
+        buf = torch.zeros((max(slots) + 1,) + tuple(lats.shape[1:]),
+                          dtype=lats.dtype, device=lats.device)
+        for j, s in enumerate(slots):
+            buf[s] = wit[by_call[c][j]]
+        want = type(eng).decode_slots(
+            eng, types.SimpleNamespace(latents=buf), slots)
+        require(same_bits(torch, imgs, want),
+                f"{label} decode {c} (slots {slots}): images differ from "
+                f"decoding the witness latents at the same chunks")
+        sizes[len(slots)] = sizes.get(len(slots), 0) + 1
+    print(f"  {label}: {len(reqs)} requests' latents bit-equal to batch-"
+          f"{rows} witnesses; {len(seen)} decodes (slots per decode "
+          f"{json.dumps(sizes)}) bit-equal to decoding the witness latents "
+          f"at the same chunks")
+
+
+@contextlib.contextmanager
+def _calls_seen(eng):
+    """Record each ``generate`` call of ``eng``: its stats, and the int64
+    PSSA counters (nnz, ones_xor) that the fused self-attention folds
+    into each layer's float32 ``PSSAStats``, in call order."""
+    from repro_torch.core import pssa
+    calls, generate, fold = [], eng.generate, pssa.stats_from_counters
+
+    def counting_fold(nnz, ones_xor, *a, **kw):
+        calls[-1]["counters"].append((nnz, ones_xor))
+        return fold(nnz, ones_xor, *a, **kw)
+
+    def recording_generate(*a, **kw):
+        calls.append({"counters": []})
+        out = generate(*a, **kw)
+        calls[-1]["stats"] = out.stats
+        return out
+    eng.generate, pssa.stats_from_counters = recording_generate, \
+        counting_fold
+    try:
+        yield calls
+    finally:
+        del eng.generate
+        pssa.stats_from_counters = fold
+
+
+def _calls_buckets(torch, cfg, calls) -> dict:
+    """The integer buckets a set of one-shot calls adds up to: per step
+    and layer (``attn_layer_order``), nnz and ones_xor from the folded
+    kernel counters, imp from the stats' important-token masks; rows per
+    step from the accounted row counts."""
+    from repro_torch.diffusion.stats import attn_layer_order
+    order = attn_layer_order(cfg.unet)
+    n, nl = cfg.ddim.num_inference_steps, len(order)
+    out = None
+    for c in calls:
+        st = c["stats"]
+        require(tuple(st.layers) == tuple(order)
+                and len(c["counters"]) == n * nl,
+                f"a call folded {len(c['counters'])} counters, not {n}x{nl}")
+        nnz, xor = (torch.stack([x[i] for x in c["counters"]]).view(n, nl)
+                    .to(torch.int64) for i in (0, 1))
+        imp = torch.stack([t.important.flatten(2).sum(2, dtype=torch.int64)
+                           .sum(1) for t in st.tips], dim=1)
+        rows = torch.full((n,), st.tips[0].important.shape[1],
+                          dtype=torch.int64, device=nnz.device)
+        add = {"nnz": nnz, "ones_xor": xor, "imp": imp, "rows": rows}
+        out = add if out is None else {k: out[k] + add[k] for k in out}
+    return out
+
+
+def _hold_buckets(torch, label, accum, want: dict):
+    """A drained ``LedgerAccum``'s int64 buckets equal, bucket for bucket,
+    to what one-shot calls add up to (``_calls_buckets``)."""
+    for k, v in want.items():
+        got = getattr(accum, k)
+        require(torch.equal(got, v.to(got.device)),
+                f"{label}: {k} buckets differ from the one-shot calls' "
+                f"(max |diff| {(got - v.to(got.device)).abs().max().item()})")
+    print(f"  {label}: int64 buckets (nnz, ones_xor, imp, rows) equal to "
+          f"the one-shot calls' sums, {want['nnz'].numel()} per counter; "
+          f"nnz total {int(want['nnz'].sum())}")
+
+
+def _hold_energy(label, got: dict, want: dict, exact: bool):
+    """A drained accumulator's energy dict against the one-shot ledger's.
+    The accumulator converts each bucket's integer sum over all requests
+    to float32 once; ``energy_report_multi`` converts each call's sum and
+    adds the calls, which rounds otherwise where one call's counter
+    passes 2^24 (BK-SDM's res-64 layers at full width, four rows a call).
+    So ``exact`` holds key for key, else each key to LEDGER_RTOL; the
+    integer buckets under both are held exactly by ``_hold_buckets``."""
+    require(set(got) == set(want), f"{label}: energy keys differ")
+    rel = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+              for k in want)
+    same = all(got[k] == want[k] for k in want)
+    print(f"  {label}: energy key for key {same}, max relative difference "
+          f"{rel:.3e}; mj_per_iter_with_ema {got['mj_per_iter_with_ema']!r}"
+          f" / {want['mj_per_iter_with_ema']!r}")
+    require(same if exact else rel <= LEDGER_RTOL,
+            f"{label}: energy {got} != one-shot {want}")
+
+
+def _latency_line(label, m, occupancy):
+    lat, q = m["latency_s"], m["queue_wait_s"]
+    print(f"  {label}: latency s p50 {lat['p50']:.4f} p95 {lat['p95']:.4f} "
+          f"max {lat['max']:.4f}; queue wait p95 {q['p95']:.4f}; goodput "
+          f"{m['goodput_imgs_per_s']:.4f} images/s; occupancy "
+          f"{occupancy:.4f}; makespan {m['makespan_s']:.3f} s")
+
+
+def _fixed_occupancy(m, micro_batch):
+    """Valid rows per batch row of a fixed-batch run."""
+    return m["requests"] / (m["engine_calls"] * micro_batch)
+
+
+def _serve_traffic(torch, eng, label, make, rate, per_step, exact_energy):
+    """(b) / (c): ``make()``'s requests on a bursty trace (SERVING_BURST
+    at a time, ``rate`` images/s) through ``ContinuousScheduler`` (latents
+    recorded at decode) and ``FixedBatchScheduler`` on ``eng``; launches
+    per slot step and per call, latents, images and the ledger against
+    one-shot witnesses at batch SERVING_SLOTS."""
+    from repro_torch.diffusion.pipeline import energy_report_multi
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.scheduler import (ContinuousScheduler,
+                                              FixedBatchScheduler,
+                                              apply_trace, bursty_trace)
+
+    n, s = SERVING_REQUESTS, SERVING_SLOTS
+    gap = SERVING_BURST / rate
+    trace = bursty_trace(n, SERVING_BURST, gap)
+    print(f"  {label}: {n} requests, {SERVING_BURST} every {gap:.4f} s "
+          f"({rate:.4f} images/s), {s} slots / micro-batch {s}")
+    cont = ContinuousScheduler(eng, s)
+    cont.warmup()
+    reqs = apply_trace(make(), trace)
+    runtime.reset_launch_counts()
+    with _decodes_seen(eng) as seen:
+        mc = cont.run(reqs, ledger=True)
+    accum = mc.pop("state").accum
+    _hold_launches(runtime.launch_counts(), mc["engine_steps"], per_step,
+                   f"{label} continuous")
+    fixed = FixedBatchScheduler(eng, s)
+    fixed.warmup()
+    rf = apply_trace(make(), trace)
+    runtime.reset_launch_counts()
+    with _calls_seen(eng) as fcalls:
+        mf = fixed.run(rf)
+    steps = eng.cfg.ddim.num_inference_steps
+    _hold_launches(runtime.launch_counts(), mf["engine_calls"] * steps,
+                   per_step, f"{label} fixed batch ({mf['engine_calls']} "
+                   f"calls x {steps} steps)")
+    _latency_line(f"{label} continuous", mc, mc["mean_occupancy"])
+    _latency_line(f"{label} fixed batch", mf, _fixed_occupancy(mf, s))
+    print(f"  {label} continuous: iter_wall_ms {mc['iter_wall_ms']:.3f} "
+          f"over {mc['engine_steps']} slot steps")
+    with _calls_seen(eng) as wcalls:
+        witnesses = _batch_witnesses(torch, eng, reqs, s)
+    _hold_served(torch, eng, label, reqs, seen, witnesses, s)
+    for r in rf:
+        out = witnesses[r.rid // s]
+        require(same_bits(torch, torch.from_numpy(r.image).to(
+            out.images.device), out.images[r.rid % s]),
+            f"{label} fixed batch request {r.rid}: image differs from the "
+            f"batch-{s} witness")
+    print(f"  {label} fixed batch: {n} images bit-equal to the batch-{s} "
+          f"witnesses")
+    want = _calls_buckets(torch, eng.cfg, wcalls)
+    _hold_buckets(torch, f"{label} continuous", accum, want)
+    fixed_buckets = _calls_buckets(torch, eng.cfg, fcalls)
+    require(all(torch.equal(fixed_buckets[k], want[k]) for k in want),
+            f"{label}: the fixed batch's integer counters differ from the "
+            f"witnesses'")
+    rep = energy_report_multi(eng.cfg, [w.stats for w in witnesses])
+    _hold_energy(label, mc["energy"],
+                 {k: float(v) for k, v in rep.summary().items()},
+                 exact_energy)
+
+
+@phase("serving")
+def serving_phase(torch, eng):
+    """The serving front-end (``launch.scheduler``,
+    ``launch.serve_diffusion``) at full width, on the slice's weights.
+
+    (a) Eight requests at t = 0 on the slice route (fused + DBSC) through
+        ``ContinuousScheduler(eng, 4)`` and ``FixedBatchScheduler(eng,
+        4)``, both with the ledger: 9 / 9 / 18 launches per slot step and
+        per call step; each request's image bit-equal across the two
+        (each slot batch holds one micro-batch's requests, so DBSC's
+        shared scale is equal); the accumulator's int64 buckets equal to
+        the fixed batch's counters summed over its calls, the energy
+        dicts by ``_hold_energy``; images/s, ``iter_wall_ms`` and mean
+        occupancy for both.
+    (b) The same requests on a bursty trace (2 at a time at SERVING_LOAD
+        x (a)'s continuous images/s) on ``--kernels auto`` (fused, float
+        FFN: 9 / 9 / 0) through both schedulers: latency p50 / p95 /
+        max, queue wait p95, goodput, occupancy; launches per slot step
+        and per call step; each request's final latents bit-equal to
+        one-shot ``generate`` at batch 4, each decode bit-equal to
+        decoding the witness latents at the same chunks, the fixed
+        batch's images bit-equal to the witnesses'; the accumulator's
+        int64 buckets (and the fixed batch's counters) equal to the
+        witnesses' summed, the float energy against
+        ``energy_report_multi`` over the witnesses by ``_hold_energy``.
+    (c) DiT-S/2 at full width the same way: a t = 0 drain for the rate,
+        then the trace, float FFN, 12 / 12 / 0 launches a step, the same
+        bitwise and integer checks, the energy key for key (no call's
+        counter passes 2^24 at T = 256).
+    (d) ``serve_diffusion.main`` in this process at full width:
+        ``--continuous --slots 4 --requests 4 --steps 25 --guidance 7.5
+        --ledger`` on the slice route; its JSON names the ``cuda``
+        backend, four requests, a finite ``mj_per_iter_with_ema``, and
+        9 / 9 / 18 launches per slot step (the warm-up's one included).
+    """
+    import io
+
+    from repro_torch.configs import dit_s
+    from repro_torch.diffusion.engine import DiffusionEngine
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.launch import serve_diffusion
+    from repro_torch.launch.scheduler import (ContinuousScheduler,
+                                              FixedBatchScheduler,
+                                              make_requests)
+
+    cfg, n, s = eng.cfg, SERVING_REQUESTS, SERVING_SLOTS
+    require(cfg.unet.kernel_policy == KernelPolicy(
+        self_attention="fused", cross_attention="fused", ffn="dbsc"),
+        "the slice engine is not on the slice route")
+
+    dev = eng.device
+
+    def make():
+        return make_requests(cfg, n, seed=31, device=dev)
+
+    # (a)
+    cont = ContinuousScheduler(eng, s)
+    cont.warmup()
+    ra = make()
+    runtime.reset_launch_counts()
+    mc = cont.run(ra, ledger=True)
+    accum = mc.pop("state").accum
+    _hold_launches(runtime.launch_counts(), mc["engine_steps"],
+                   SLICE_ROUTE_PER_STEP, "(a) continuous")
+    require(mc["engine_steps"] == 2 * cfg.ddim.num_inference_steps,
+            f"(a) {mc['engine_steps']} slot steps")
+    fixed = FixedBatchScheduler(eng, s)
+    fixed.warmup()
+    rf = make()
+    steps = cfg.ddim.num_inference_steps
+    runtime.reset_launch_counts()
+    with _calls_seen(eng) as fcalls:
+        mf = fixed.run(rf, ledger=True)
+    _hold_launches(runtime.launch_counts(), mf["engine_calls"] * steps,
+                   SLICE_ROUTE_PER_STEP, f"(a) fixed batch "
+                   f"({mf['engine_calls']} calls x {steps} steps)")
+    for a, b in zip(ra, rf):
+        require(a.image.tobytes() == b.image.tobytes(),
+                f"(a) request {a.rid}: continuous image differs from the "
+                f"fixed batch's (max |diff| "
+                f"{abs(a.image - b.image).max():.3e})")
+    print(f"  (a): {n} images bit-equal across the schedulers")
+    _hold_buckets(torch, "(a) continuous against the fixed batch", accum,
+                  _calls_buckets(torch, cfg, fcalls))
+    _hold_energy("(a)", mc["energy"], mf["energy"], exact=False)
+    for label, m, iter_ms, occ in (
+            ("continuous", mc, mc["iter_wall_ms"], mc["mean_occupancy"]),
+            ("fixed batch", mf,
+             1e3 * mf["call_wall_s"] / (mf["engine_calls"] * steps),
+             _fixed_occupancy(mf, s))):
+        print(f"  (a) {label}: {m['goodput_imgs_per_s']:.4f} images/s, "
+              f"iter_wall_ms {iter_ms:.3f}, mean occupancy {occ:.4f}, "
+              f"makespan {m['makespan_s']:.3f} s")
+    rate = SERVING_LOAD * mc["goodput_imgs_per_s"]
+
+    # (b)
+    params = {"text": eng.text_params, "unet": eng.unet_params,
+              "vae": eng.vae_params}
+    auto = KernelPolicy.parse("auto", device=dev)
+    require(auto == KernelPolicy.fused() and auto.ffn == "reference",
+            f"auto on the card is {auto}")
+    float_eng = DiffusionEngine(dataclasses.replace(
+        cfg, unet=dataclasses.replace(cfg.unet, kernel_policy=auto)),
+        device=dev, params=params)
+    _serve_traffic(torch, float_eng, "(b)", make, rate,
+                   FLOAT_ROUTE_PER_STEP, exact_energy=False)
+
+    # (c)
+    dcfg = dit_s.with_kernel_policy(dit_s.CONFIG, auto)
+    deng = DiffusionEngine(dcfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(20))
+
+    def dmake():
+        return make_requests(dcfg, n, seed=32, device=dev)
+    dcont = ContinuousScheduler(deng, s)
+    dcont.warmup()
+    m0 = dcont.run(dmake())
+    m0.pop("state")
+    _latency_line("(c) t = 0", m0, m0["mean_occupancy"])
+    _serve_traffic(torch, deng, "(c)", dmake,
+                   SERVING_LOAD * m0["goodput_imgs_per_s"],
+                   DIT_FLOAT_PER_STEP, exact_energy=True)
+
+    # (d)
+    argv = ["--continuous", "--slots", "4", "--requests", "4", "--steps",
+            "25", "--guidance", "7.5", "--ledger", "--kernels",
+            "self_attention=fused,cross_attention=fused,ffn=dbsc"]
+    runtime.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_diffusion.main(argv)
+    head, _, body = buf.getvalue().partition("\n")
+    print(f"  (d) {head}")
+    m = json.loads(body)
+    require(m["requests"] == 4, f"(d) {m['requests']} requests")
+    require(math.isfinite(m["energy"]["mj_per_iter_with_ema"]),
+            "(d) non-finite mj_per_iter_with_ema")
+    require(m["kernel_policy"]["backend"] == "cuda"
+            and m["kernel_policy"]["ffn"] == "dbsc",
+            f"(d) kernel policy {m['kernel_policy']}")
+    _hold_launches(runtime.launch_counts(), m["engine_steps"] + 1,
+                   SLICE_ROUTE_PER_STEP, "(d) CLI (warm-up step included)")
+    _latency_line("(d) CLI", m, m["mean_occupancy"])
+    print(f"  (d) CLI: mj_per_iter_with_ema "
+          f"{m['energy']['mj_per_iter_with_ema']!r}, iter_wall_ms "
+          f"{m['iter_wall_ms']:.3f}, compile_s {m['compile_s']:.2f}")
+
+
 def profile_breakdown(torch, run, tag: str, top: int = 15):
     """Device time by kernel over one more ``run()`` (which returns its
     wall seconds), under torch.profiler; this run's counts and wall time
@@ -2985,6 +3395,7 @@ def main() -> int:
         slots_phase(torch, eng)
         slot_reuse_phase(torch, eng)
         dit_phase(torch)
+        serving_phase(torch, eng)
         bitmap_rows, bitmap_counts = bitmap_phase(torch, eng)
         reuse_counts, dense_s = temporal_phase(torch, eng)
         edit_phase(torch, eng, dense_s)

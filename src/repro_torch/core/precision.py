@@ -50,6 +50,56 @@ class PrecisionPolicy:
     def adaptive(cls, target_low_ratio: float = 0.448) -> "PrecisionPolicy":
         return cls(spotting="adaptive", target_low_ratio=target_low_ratio)
 
+    @classmethod
+    def parse(cls, spec: str) -> "PrecisionPolicy":
+        """Build a policy from a CLI spec (the ``--tips`` flag).
+
+        A comma-separated list where a bare ``fixed`` / ``adaptive``
+        selects the spotting mode and ``key=value`` items override fields,
+        e.g. ``"adaptive,target=0.5,mid=true"`` or ``"threshold=0.02"``.
+        Keys: ``threshold``, ``target`` (target_low_ratio), ``mid``
+        (ffn_mid), ``cls`` (cls_index), ``spotting``.
+        """
+        fields = {}
+        for item in filter(None, (s.strip() for s in spec.split(","))):
+            if item in _SPOTTING:
+                fields["spotting"] = item
+                continue
+            if "=" not in item:
+                raise ValueError(
+                    f"tips policy spec {item!r}: expected a spotting mode "
+                    f"in {_SPOTTING} or key=value")
+            key, val = (s.strip() for s in item.split("=", 1))
+            if key == "threshold":
+                fields["threshold"] = float(val)
+            elif key == "target":
+                fields["target_low_ratio"] = float(val)
+            elif key == "mid":
+                if val.lower() not in ("true", "false"):
+                    raise ValueError(
+                        f"tips policy spec: mid={val!r} (expected true or "
+                        f"false)")
+                fields["ffn_mid"] = val.lower() == "true"
+            elif key == "cls":
+                fields["cls_index"] = int(val)
+            elif key == "spotting":
+                fields["spotting"] = val
+            else:
+                raise ValueError(
+                    f"tips policy spec: unknown key {key!r} (expected "
+                    f"threshold, target, mid, cls or spotting)")
+        return cls(**fields)
+
+    def describe(self) -> dict:
+        """JSON-friendly view for serving metrics and records."""
+        return {
+            "spotting": self.spotting,
+            "threshold": self.threshold,
+            "target_low_ratio": self.target_low_ratio,
+            "ffn_mid": self.ffn_mid,
+            "cls_index": self.cls_index,
+        }
+
 
 def spot_cas(cas: torch.Tensor, policy: PrecisionPolicy,
              threshold_scale=None) -> tips.TIPSResult:

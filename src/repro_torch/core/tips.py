@@ -13,6 +13,7 @@ import torch
 from repro_torch.core import quant
 
 TIPS_ACTIVE_ITERS = 20
+TOTAL_ITERS = 25
 
 
 class TIPSResult(NamedTuple):
@@ -48,3 +49,32 @@ def apply_precision_mask(x: torch.Tensor, important: torch.Tensor,
     y = (q.values.to(torch.float32) * q.scale).to(x.dtype)
     # the JAX straight-through form x + (y - x), kept for its rounding
     return x + (y - x)
+
+
+def workload_low_precision_fraction(ratios_per_iter,
+                                    active_iters: int | None = None,
+                                    total_iters: int | None = None,
+                                    *, ddim=None) -> torch.Tensor:
+    """Fraction of the run's FFN workload eligible for INT6 (paper Fig.
+    9(b): the per-iteration ratio, zero after the TIPS-active window).
+
+    The schedule is the run's: pass its ``DDIMConfig`` as ``ddim`` (or
+    the two counts); the paper's 20 of 25 iterations is the fallback when
+    neither is given.  The active ratios are added in order in float32,
+    as the JAX package's eager sum does for up to 32 of them (a
+    vectorized sum would round otherwise).
+    """
+    if ddim is not None:
+        if active_iters is None:
+            active_iters = ddim.tips_active_iters
+        if total_iters is None:
+            total_iters = ddim.num_inference_steps
+    if active_iters is None:
+        active_iters = TIPS_ACTIVE_ITERS
+    if total_iters is None:
+        total_iters = TOTAL_ITERS
+    total = torch.zeros((), dtype=torch.float32)
+    for r in torch.as_tensor(ratios_per_iter,
+                             dtype=torch.float32)[:active_iters]:
+        total = total + r
+    return total / total_iters

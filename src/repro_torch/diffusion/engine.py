@@ -19,7 +19,10 @@ computes every patch, and ``slot_step`` folds the rows' reuse counters
 into the accumulator.
 
 The engine holds a ``denoiser.Denoiser`` resolved from ``cfg.unet``, so
-everything above serves the UNet and the DiT family alike.
+everything above serves the UNet and the DiT family alike.  A
+``core.policies.ServePolicies`` bundle (``policies=``) installs its
+kernel, precision and reuse policies on the config, and its sampler and
+bank become the defaults of ``generate`` and ``init_slots``.
 
 PyTorch runs eagerly, so there is no executable cache; the wall time of a
 call is taken after ``torch.cuda.synchronize()`` on the card.
@@ -32,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.policies import ServePolicies
 from repro_torch.diffusion import solvers as solvers_mod
 from repro_torch.diffusion.pipeline import (PipelineConfig,
                                             _default_generator, init_params)
@@ -113,11 +117,18 @@ class DiffusionEngine:
     ``params`` (from ``pipeline.init_params`` or ``repro_torch.convert``)
     default to random ones drawn from ``generator``.  Kernel routing and
     precision are set on the config (``configs.bk_sdm.with_kernel_policy``
-    / ``with_precision``).
+    / ``with_precision``) or by ``policies`` (a ``ServePolicies``), which
+    replaces the config's three policies and whose sampler and bank become
+    the defaults of ``generate`` and ``init_slots``.
     """
 
     def __init__(self, cfg: PipelineConfig, device=None, params=None,
-                 generator=None):
+                 generator=None, policies: Optional[ServePolicies] = None):
+        self._default_sampler = self._default_bank = None
+        if policies is not None:
+            self._default_sampler = policies.sampler
+            self._default_bank = policies.bank
+            cfg = policies.apply(cfg)
         reuse = cfg.unet.reuse_policy
         if reuse.enabled and reuse.capacity < 1.0:
             # the engine's run starts from an INVALID cache: every patch is
@@ -139,6 +150,23 @@ class DiffusionEngine:
         self.unet_params = params["unet"]
         self.vae_params = params["vae"]
         self.last_wall_s: Optional[float] = None
+
+    @property
+    def policies(self) -> ServePolicies:
+        """The engine's bundle: the live config's policies (so a
+        ``set_precision`` shows) with the engine's sampling defaults."""
+        return ServePolicies.from_config(self.cfg.unet,
+                                         sampler=self._default_sampler,
+                                         bank=self._default_bank)
+
+    def set_precision(self, policy) -> "DiffusionEngine":
+        """Switch the TIPS/DBSC precision runtime on a live engine (the
+        parameters do not depend on it)."""
+        self.cfg = dataclasses.replace(
+            self.cfg, unet=dataclasses.replace(self.cfg.unet,
+                                               precision=policy))
+        self.denoiser = make_denoiser(self.cfg.unet)
+        return self
 
     def _encode(self, tokens) -> torch.Tensor:
         """(B, text_len) tokens -> (B, text_len, d) context, one row at a
@@ -173,9 +201,16 @@ class DiffusionEngine:
         and step budget; the stats then carry ``policy.num_steps`` steps.
         ``sampler_bank`` (a bank holding the policy) runs every row under
         the full bank pinned to the policy's index: the one-shot oracle of
-        a slot row served under that bank (DESIGN.md §10).
+        a slot row served under that bank (DESIGN.md §10).  With neither
+        given, the engine's ``policies`` sampler (and bank) apply.
         """
         cfg = self.cfg
+        if (sampler_policy is None and sampler_bank is None
+                and self._default_sampler is not None):
+            # a bank without a sampler only feeds init_slots: one-shot
+            # generate needs a concrete policy
+            sampler_policy = self._default_sampler
+            sampler_bank = self._default_bank
         if sampler_bank is not None:
             sampler_bank = solvers_mod.as_bank(sampler_bank)
             if sampler_policy not in sampler_bank:
@@ -247,10 +282,13 @@ class DiffusionEngine:
         ``p * N + i`` (N = the bank's largest budget) holds policy ``p``'s
         step-``i`` counters (``pipeline.energy_report_banked``).  Under
         an enabled ``reuse_policy`` the state carries an all-invalid
-        per-slot reuse cache.
+        per-slot reuse cache.  ``bank=None`` takes the engine's
+        ``policies`` bank.
         """
         if num_slots < 1:
             raise ValueError(f"num_slots={num_slots} must be >= 1")
+        if bank is None:
+            bank = self._default_bank
         cfg = self.cfg
         s, c = cfg.unet.latent_size, cfg.unet.in_channels
         ctx_shape = (num_slots, cfg.text.max_len, cfg.text.d_model)

@@ -145,6 +145,18 @@ def _tips_ratio_terms(stats_one_iter) -> tuple:
     return num, den
 
 
+def measured_sas_ratios(stats_one_iter) -> dict:
+    """Per-resolution (compressed / dense) SAS ratio of one iteration."""
+    return {res: num / max(den, 1e-12)
+            for res, (num, den) in _sas_ratio_terms(stats_one_iter).items()}
+
+
+def measured_tips_ratio(stats_one_iter) -> float:
+    """Workload-weighted INT6 fraction across the iteration's FFNs."""
+    num, den = _tips_ratio_terms(stats_one_iter)
+    return num / max(den, 1e-12)
+
+
 def energy_report(cfg: PipelineConfig, stats_per_iter,
                   full_geometry: bool = True,
                   sampler_policy=None) -> "PipelineEnergyReport":

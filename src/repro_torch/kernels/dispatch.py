@@ -11,6 +11,11 @@
 tensor and their plain PyTorch versions on a CPU tensor.  Stats parity
 (DESIGN.md §5): for any policy the reported counters equal the reference
 path's.
+
+The JAX package's block-size knobs, its autotune table and its
+``ffn_quant="int8"`` route are not ported yet: their specs raise in
+``KernelPolicy.parse`` (ROADMAP.md, Queue 1 items 3 and 5), and there is
+no interpreter on the card, so ``interpret=`` raises too.
 """
 from __future__ import annotations
 
@@ -32,6 +37,15 @@ _CHOICES = {
     "ffn": ("reference", "dbsc"),
     "bitmap": ("reference", "kernel"),
     "reuse": ("reference", "kernel"),
+}
+_PRESETS = ("reference", "fused", "auto")
+# the hand-written kernel behind each non-reference implementation
+_KERNELS = {
+    ("self_attention", "fused"): "pssa_attention",
+    ("cross_attention", "fused"): "cross_attention_tips",
+    ("ffn", "dbsc"): "bitslice_matmul",
+    ("bitmap", "kernel"): "patch_bitmap",
+    ("reuse", "kernel"): "patch_delta",
 }
 
 
@@ -66,10 +80,77 @@ class KernelPolicy:
 
     @classmethod
     def auto(cls, device=None) -> "KernelPolicy":
-        """``fused`` + ``dbsc`` when ``device`` is the card, else reference."""
+        """``fused`` when ``device`` (``None``: the card) is the card,
+        ``reference`` on the CPU, as the JAX package's ``auto`` picks by
+        backend.  The FFN stays on the float reference either way: DBSC
+        is an explicit choice (``ffn=dbsc``)."""
         if resolve_device(device).type == "cuda":
-            return dataclasses.replace(cls.fused(), ffn="dbsc")
+            return cls.fused()
         return cls.reference()
+
+    @classmethod
+    def parse(cls, spec: str, device=None) -> "KernelPolicy":
+        """Build a policy from a CLI spec (the ``--kernels`` flag).
+
+        ``spec`` is a preset (``reference`` | ``fused`` | ``auto``, the
+        last resolved for ``device``) or comma-separated ``op=impl``
+        overrides on top of the reference preset, e.g.
+        ``"self_attention=fused,ffn=dbsc"``.  The JAX package's
+        ``autotuned``, ``tuned=``, ``ffn_quant=int8`` and ``interpret=``
+        raise: the port has no such route yet, and no spec maps silently
+        onto another.
+        """
+        spec = spec.strip()
+        if spec == "auto":
+            return cls.auto(device)
+        if spec in _PRESETS:
+            return getattr(cls, spec)()
+        if spec == "autotuned":
+            raise ValueError(
+                "kernel policy 'autotuned': the port has no autotune "
+                "table yet (ROADMAP.md, Queue 1 item 3)")
+        fields = {}
+        for item in filter(None, (s.strip() for s in spec.split(","))):
+            if "=" not in item:
+                raise ValueError(
+                    f"kernel policy spec {item!r}: expected op=impl or a "
+                    f"preset in {_PRESETS}")
+            op, impl = (s.strip() for s in item.split("=", 1))
+            if op in _CHOICES:
+                fields[op] = impl
+            elif op == "tuned":
+                raise ValueError(
+                    f"kernel policy spec: tuned={impl!r}: the port has no "
+                    f"autotune table yet (ROADMAP.md, Queue 1 item 3)")
+            elif op == "ffn_quant":
+                if impl != "model":
+                    raise ValueError(
+                        f"kernel policy spec: ffn_quant={impl!r}: the port "
+                        f"runs the FFN's integers as the model's datapath "
+                        f"only ('model'); the int8 route is ROADMAP.md, "
+                        f"Queue 1 item 5")
+            elif op == "interpret":
+                raise ValueError(
+                    f"kernel policy spec: interpret={impl!r}: the kernels "
+                    f"are CUDA and have no interpreter; a CPU tensor takes "
+                    f"their plain versions")
+            else:
+                raise ValueError(f"kernel policy spec: unknown op {op!r} "
+                                 f"(expected {tuple(_CHOICES)})")
+        return cls(**fields)
+
+    def describe(self, device=None) -> dict:
+        """JSON-friendly view for serving metrics and records.
+
+        ``backend`` is the device type the policy runs on (``device``,
+        ``None``: the card); ``tuned`` and ``ffn_quant`` carry the only
+        values the port has.
+        """
+        return {**{op: getattr(self, op) for op in _CHOICES},
+                "backend": torch.device(
+                    "cuda" if device is None else device).type,
+                "tuned": False,
+                "ffn_quant": "model"}
 
 
 def _ffn_mid_covered(precision, important):
@@ -185,3 +266,21 @@ def patch_delta(policy: KernelPolicy, x, x_ref, *, patch: int,
     """
     return _patch_delta_op(x, x_ref, patch=patch, threshold=threshold,
                            use_kernel=policy.reuse == "kernel")
+
+
+def support_matrix() -> list:
+    """op x impl rows: on the card (``cuda``) a non-reference
+    implementation runs its sm_90a kernel, on the CPU (``cpu``) that
+    kernel's plain PyTorch version; the reference runs native ops on
+    either."""
+    rows = []
+    for op, impls in _CHOICES.items():
+        for impl in impls:
+            kernel = _KERNELS.get((op, impl))
+            rows.append({
+                "op": op, "impl": impl, "kernel": kernel,
+                "cuda": (f"sm_90a kernel (csrc/{kernel}.cu)" if kernel
+                         else "native"),
+                "cpu": "plain PyTorch version" if kernel else "native",
+            })
+    return rows

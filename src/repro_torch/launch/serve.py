@@ -41,7 +41,7 @@ def serve(cfg: ArchConfig, params: dict, prompts: torch.Tensor,
     if cfg.family != "ssm":
         raise NotImplementedError(
             f"serve runs the 'ssm' family only, not {cfg.family!r}; see "
-            f"ROADMAP.md, Queue 1 item 14")
+            f"ROADMAP.md, Queue 1 item 7")
     if new_tokens < 1:
         raise ValueError(f"new_tokens={new_tokens} must be at least 1")
     device = prompts.device

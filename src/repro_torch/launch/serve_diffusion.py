@@ -1,0 +1,293 @@
+"""Text-to-image serving front-end over the DiffusionEngine (port of
+``repro.launch.serve_diffusion``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_diffusion --smoke \\
+      --requests 8 --micro-batch 4 --steps 5 [--guidance 7.5] \\
+      [--model unet|dit] [--kernels fused] [--tips adaptive] [--ledger] \\
+      [--continuous --slots 4 --arrival-rate 2.0 --burst 2] \\
+      [--solver dpm2m,steps=12] [--tiers draft balanced quality] \\
+      [--device cpu]
+
+Runs on the card unless ``--device cpu`` is given (a host without CUDA
+raises otherwise).  The policy flags (``--kernels``/``--tips``/
+``--reuse``/``--solver``/``--tiers``) are the shared ``launch.cli``
+wiring: one parse into a ``core.policies.ServePolicies`` bundle.
+``--model`` picks the denoiser family: the BK-SDM UNet (default) or
+DiT-S/2; ``--smoke`` the reduced geometry (full widths without it).
+
+Micro-batching (the default): prompts are packed into fixed-size
+micro-batches (the tail padded with repeats and masked out of the ledger
+by ``stats_rows``), each served by one ``generate`` with CFG fused into
+one batched denoiser call per step.
+
+Continuous batching (``--continuous``, DESIGN.md §8): a ``--slots``-row
+batch stays in flight, every step advances all occupied slots, and
+finished rows are decoded and swapped for queued prompts between steps.
+``--arrival-rate`` (requests/s, ``--burst`` at a time; 0 = all at once)
+drives a bursty trace, and the report adds enqueue-to-image latency
+percentiles, queueing delay, occupancy and goodput.  ``--edit`` serves the
+img2img request class (one base latent, a re-noised window per request);
+``--tiers`` a mixed quality-tier bank inside one slot step.  The
+``--ledger`` headline comes from the integer accumulator and equals the
+same requests served one-shot.
+
+The JAX package's ``--mesh`` (ROADMAP.md Queue 1 item 4) and its cluster
+router flags (``--replicas``, ``--slo-steps``, ``--no-degrade``,
+``--preview-every``; item 2) are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from repro_torch.core import tips
+from repro_torch.diffusion.engine import DiffusionEngine
+from repro_torch.diffusion.pipeline import (aggregated_reuse_ratios_per_iter,
+                                            aggregated_tips_ratios_per_iter,
+                                            energy_report_multi)
+from repro_torch.kernels.runtime import resolve_device
+from repro_torch.launch.cli import (add_policy_args, config_from_args,
+                                    policies_from_args)
+from repro_torch.launch.scheduler import (ContinuousScheduler, apply_trace,
+                                          bursty_trace, make_edit_requests,
+                                          make_requests, micro_batches,
+                                          request_generator)
+
+
+def make_config(args, policies=None):
+    """Config for a CLI namespace (the shared ``launch.cli`` wiring), with
+    ``policies`` installed (``None``: parsed from ``args``)."""
+    return config_from_args(args, policies=policies)
+
+
+def synthetic_requests(cfg, n: int, seed: int = 7, device=None
+                       ) -> torch.Tensor:
+    """n prompt token rows drawn from a CPU generator seeded ``seed``, on
+    ``device`` (``None``: the card).  No tokenizer offline; the prompts'
+    meaning does not matter."""
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.text.vocab_size, (n, cfg.text.max_len),
+                         generator=g, dtype=torch.int32)
+    return toks.to(resolve_device(device))
+
+
+def serve(cfg, requests, micro_batch: int, seed: int = 0,
+          ledger: bool = False, sampler_policy=None, device=None) -> dict:
+    """Drain the request rows through the engine in micro-batches; return
+    serving metrics.
+
+    The engine's weights come from a generator seeded ``seed`` on
+    ``device`` (``None``: the card), batch ``i``'s initial latents from
+    ``scheduler.request_generator(seed, i)``.  ``sampler_policy`` (a
+    ``solvers.SamplerPolicy``) applies to every request; the ledger then
+    normalizes by its step budget.  ``"mesh"`` is always None: the port
+    has no mesh mode yet.
+    """
+    device = resolve_device(device)
+    eng = DiffusionEngine(cfg, device=device, generator=torch.Generator(
+        device=device).manual_seed(seed))
+    use_cfg = cfg.ddim.guidance_scale != 1.0
+    uncond = (torch.zeros((micro_batch, cfg.text.max_len), dtype=torch.int32,
+                          device=device) if use_cfg else None)
+
+    # run exactly the shapes the loop will run once first: the full batch
+    # (skipped when every request fits one padded tail) and the tail's
+    # stats_rows one
+    n_requests = int(requests.shape[0])
+    tail = n_requests % micro_batch
+    compile_s = 0.0
+    if n_requests >= micro_batch:
+        compile_s += eng.warmup(micro_batch, use_cfg,
+                                sampler_policy=sampler_policy)
+    if tail:
+        compile_s += eng.warmup(micro_batch, use_cfg, stats_rows=tail,
+                                sampler_policy=sampler_policy)
+    batches = micro_batches(requests, micro_batch)
+    s, c = cfg.unet.latent_size, cfg.unet.in_channels
+
+    images = 0
+    padded = 0
+    wall = 0.0
+    stats_per_batch = []
+    for i, (toks, valid) in enumerate(batches):
+        lat = torch.randn((micro_batch, s, s, c),
+                          generator=request_generator(seed, i))
+        out = eng.generate(toks, uncond_tokens=uncond,
+                           latents=lat.to(device),
+                           stats_rows=valid if valid < micro_batch else None,
+                           sampler_policy=sampler_policy)
+        wall += eng.last_wall_s
+        images += valid
+        padded += micro_batch - valid
+        stats_per_batch.append(out.stats)
+
+    steps = (cfg.ddim.num_inference_steps if sampler_policy is None
+             else sampler_policy.num_steps)
+    metrics = {
+        "requests": n_requests,
+        "denoiser_family": eng.denoiser.family,
+        "kernel_policy": cfg.unet.kernel_policy.describe(device),
+        "precision_policy": cfg.unet.precision.describe(),
+        "micro_batch": micro_batch,
+        "mesh": None,
+        "engine_calls": len(batches),
+        "padded_rows": padded,
+        "steps_per_image": steps,
+        "guidance_fused_cfg": use_cfg,
+        "compile_s": compile_s,
+        "serve_wall_s": wall,
+        "imgs_per_s": images / max(wall, 1e-9),
+        "iter_wall_ms": 1e3 * wall / max(len(batches) * steps, 1),
+    }
+    if sampler_policy is not None:
+        metrics["sampler_policy"] = sampler_policy.describe()
+    if ledger and stats_per_batch:
+        rep = energy_report_multi(cfg, stats_per_batch,
+                                  sampler_policy=sampler_policy)
+        metrics["energy"] = {k: float(v) for k, v in rep.summary().items()}
+        if steps == cfg.ddim.num_inference_steps:
+            # the per-iteration extras index the config's schedule; a
+            # policy with its own budget reports through the summary
+            ratios = aggregated_tips_ratios_per_iter(cfg, stats_per_batch)
+            metrics["tips_low_ratio_per_iter"] = [float(r) for r in ratios]
+            metrics["tips_workload_low_fraction"] = float(
+                tips.workload_low_precision_fraction(ratios, ddim=cfg.ddim))
+            metrics["reuse_ratio_per_iter"] = [
+                float(r) for r in
+                aggregated_reuse_ratios_per_iter(cfg, stats_per_batch)]
+    return metrics
+
+
+def serve_continuous(cfg, num_requests: int, num_slots: int,
+                     arrival_rate: float = 0.0, burst: int = 1,
+                     ledger: bool = False, seed: int = 7, edit: bool = False,
+                     bank=None, device=None) -> dict:
+    """Serve a synthetic request trace through the continuous scheduler.
+
+    ``arrival_rate`` is requests/s, ``burst`` at a time (0 = the whole
+    queue at t = 0).  The warm-up runs off the clock, so the latency
+    percentiles measure serving.  ``edit`` serves the img2img request
+    class (``scheduler.make_edit_requests``); ``bank`` (tuple of
+    ``solvers.SamplerPolicy``) mixed tiers, round-robin, with the banked
+    ledger.  The engine's weights come from the default generator (seed
+    0) on ``device`` (``None``: the card), the requests from ``seed``.
+    """
+    device = resolve_device(device)
+    eng = DiffusionEngine(cfg, device=device)
+    if edit:
+        requests = make_edit_requests(cfg, num_requests, seed=seed,
+                                      device=device)
+    else:
+        requests = make_requests(cfg, num_requests, seed=seed, bank=bank,
+                                 device=device)
+    if arrival_rate > 0:
+        gap = burst / arrival_rate
+        apply_trace(requests, bursty_trace(num_requests, burst, gap))
+    sched = ContinuousScheduler(eng, num_slots, bank=bank)
+    compile_s = sched.warmup()
+    metrics = sched.run(requests, ledger=ledger)
+    metrics.pop("state")
+    metrics.update(
+        compile_s=compile_s,
+        kernel_policy=cfg.unet.kernel_policy.describe(device),
+        precision_policy=cfg.unet.precision.describe(),
+        reuse_policy=cfg.unet.reuse_policy.describe(),
+        steps_per_image=(cfg.ddim.num_inference_steps if bank is None
+                         else [p.num_steps for p in bank]),
+        workload="edit" if edit else "t2i",
+        arrival={"rate_per_s": arrival_rate, "burst": burst},
+    )
+    return metrics
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced geometry (CPU-friendly)")
+    add_policy_args(ap)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--micro-batch", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=5,
+                    help="DDIM iterations (paper: 25)")
+    ap.add_argument("--guidance", type=float, default=1.0)
+    ap.add_argument("--ledger", action="store_true",
+                    help="print the full-geometry energy headline")
+    ap.add_argument("--edit", action="store_true",
+                    help="serve the img2img/editing request class (shared "
+                         "base latent + localized per-request edits); "
+                         "pair with --continuous and --reuse temporal")
+    ap.add_argument("--continuous", action="store_true",
+                    help="slot-based continuous batching instead of fixed "
+                         "micro-batches (DESIGN.md §8)")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="in-flight slot count for --continuous")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="request arrivals per second for --continuous "
+                         "(0 = whole queue available at t=0)")
+    ap.add_argument("--burst", type=int, default=1,
+                    help="arrivals per burst for --arrival-rate")
+    ap.add_argument("--device", default=None,
+                    help="torch device to serve on (default: the card; a "
+                         "host without CUDA raises unless 'cpu' is given)")
+    args = ap.parse_args(argv)
+    if args.steps < 1:
+        ap.error("--steps must be >= 1")
+    if args.micro_batch < 1:
+        ap.error("--micro-batch must be >= 1")
+    if args.requests < 1:
+        ap.error("--requests must be >= 1")
+    if args.slots < 1:
+        ap.error("--slots must be >= 1")
+    if args.burst < 1:
+        ap.error("--burst must be >= 1")
+    if args.arrival_rate < 0:
+        ap.error("--arrival-rate must be >= 0")
+    if args.edit and not args.continuous:
+        ap.error("--edit rides the slot scheduler's admit(latents=) path; "
+                 "add --continuous")
+    if args.tiers and not args.continuous:
+        ap.error("--tiers is mixed-tier serving over the slot engine; "
+                 "add --continuous (micro-batches share one schedule — "
+                 "use --solver for a single policy)")
+    if args.tiers and args.solver:
+        ap.error("--tiers and --solver are exclusive: a bank already "
+                 "names every policy in flight")
+    if args.tiers and args.edit:
+        ap.error("--edit traces share one base latent workload; tiered "
+                 "admission is t2i-only for now")
+
+    device = resolve_device(args.device)
+    # one parse of the policy surface feeds the config and the bank
+    policies = policies_from_args(args)
+    cfg = make_config(args, policies=policies)
+    sampler_policy = policies.sampler
+    bank = policies.bank
+    sampling = ("tiers " + "+".join(p.label() for p in bank) if bank
+                else sampler_policy.key() if sampler_policy
+                else f"ddim@{args.steps}")
+    batching = (f"continuous slots={args.slots}" if args.continuous
+                else f"micro-batch {args.micro_batch}")
+    print(f"engine: model {args.model}, latent {cfg.unet.latent_size}^2, "
+          f"sampling {sampling}, guidance {args.guidance} "
+          f"({'fused-CFG' if args.guidance != 1.0 else 'no CFG'}), "
+          f"{batching}, kernels {args.kernels}, tips {args.tips}, "
+          f"reuse {args.reuse}, workload {'edit' if args.edit else 't2i'}, "
+          f"device {device}")
+    if args.continuous:
+        if bank is None and sampler_policy is not None:
+            bank = (sampler_policy,)      # single-tier bank
+        metrics = serve_continuous(cfg, args.requests, args.slots,
+                                   arrival_rate=args.arrival_rate,
+                                   burst=args.burst, ledger=args.ledger,
+                                   edit=args.edit, bank=bank, device=device)
+    else:
+        reqs = synthetic_requests(cfg, args.requests, device=device)
+        metrics = serve(cfg, reqs, args.micro_batch, ledger=args.ledger,
+                        sampler_policy=sampler_policy, device=device)
+    print(json.dumps(metrics, indent=2))
+
+
+if __name__ == "__main__":
+    main()

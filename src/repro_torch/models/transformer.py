@@ -5,7 +5,7 @@ Parameters keep the JAX package's layout: every layer leaf is stacked with
 a leading L axis, so weights carry across one to one.  ``lax.scan`` over
 that axis becomes a Python loop; there is no remat (no training yet).
 The dense, moe and hybrid families raise ``NotImplementedError``: they are
-still to be ported (ROADMAP.md, Queue 1 item 14).
+still to be ported (ROADMAP.md, Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ def _require_ssm(cfg: ArchConfig) -> None:
     if cfg.family != "ssm":
         raise NotImplementedError(
             f"repro_torch runs only the 'ssm' family so far, not "
-            f"{cfg.family!r} ({cfg.name}); see ROADMAP.md, Queue 1 item 14")
+            f"{cfg.family!r} ({cfg.name}); see ROADMAP.md, Queue 1 item 7")
 
 
 def _layer(tree, i: int):

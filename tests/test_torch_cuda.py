@@ -294,7 +294,8 @@ def test_smoke_engine_goes_through_the_kernels(cuda):
 
 @pytest.mark.requires_cuda
 def test_smoke_temporal_reuse_goes_through_the_kernels(cuda):
-    cfg = bk_sdm.with_kernel_policy(bk_sdm.SMOKE, KernelPolicy.auto(cuda))
+    cfg = bk_sdm.with_kernel_policy(bk_sdm.SMOKE, dataclasses.replace(
+        KernelPolicy.fused(), ffn="dbsc"))
     dense = DiffusionEngine(cfg)
     params = {"text": dense.text_params, "unet": dense.unet_params,
               "vae": dense.vae_params}
@@ -312,6 +313,7 @@ def test_smoke_temporal_reuse_goes_through_the_kernels(cuda):
         counts = runtime.launch_counts()
         assert counts["patch_delta"] == steps * blocks
         assert counts["pssa_attention"] == steps * blocks
+        assert counts["bitslice_matmul"] == 2 * steps * blocks
         if reuse.threshold == 0.0:
             assert torch.equal(out.latents, out_d.latents)
         for c in out.stats.reuse:
@@ -586,3 +588,63 @@ def test_smoke_prefill_goes_through_the_ssd_kernel(cuda):
                          tokens=toks)
     assert float((logits - plain).abs().max()
                  / plain.abs().max()) < 2e-2
+
+
+@pytest.mark.requires_cuda
+def test_smoke_continuous_scheduler_goes_through_the_kernels(cuda):
+    """``ContinuousScheduler`` on the route a CLI spec names: 9 / 9 / 18
+    launches per slot step over the whole drain (admit, decode and
+    retire launch none)."""
+    from repro_torch.launch.scheduler import (ContinuousScheduler,
+                                              make_requests)
+    pol = KernelPolicy.parse("self_attention=fused,cross_attention=fused,"
+                             "ffn=dbsc")
+    assert pol == SLICE
+    eng = DiffusionEngine(_guided_smoke(pol))
+    sched = ContinuousScheduler(eng, 2)
+    sched.warmup()
+    runtime.reset_launch_counts()
+    m = sched.run(make_requests(eng.cfg, 3, seed=4))
+    counts = runtime.launch_counts()
+    steps = m["engine_steps"]
+    assert steps == 2 * eng.cfg.ddim.num_inference_steps
+    assert counts["pssa_attention"] == 9 * steps
+    assert counts["cross_attention_tips"] == 9 * steps
+    assert counts["bitslice_matmul"] == 18 * steps
+    assert m["mode"] == "continuous" and m["mean_occupancy"] == 0.75
+
+
+@pytest.mark.requires_cuda
+def test_smoke_continuous_equals_fixed_batch_on_card(cuda):
+    """Four requests at t = 0 through 2 slots and micro-batches of 2 on
+    the kernels: images and the energy dict equal bit for bit (each slot
+    batch holds one micro-batch's requests, so DBSC's shared scale and
+    cuBLAS's row count are equal)."""
+    from repro_torch.launch.scheduler import (ContinuousScheduler,
+                                              FixedBatchScheduler,
+                                              make_requests)
+    eng = DiffusionEngine(_guided_smoke(SLICE))
+    rc, rf = (make_requests(eng.cfg, 4, seed=9) for _ in range(2))
+    mc = ContinuousScheduler(eng, 2).run(rc, ledger=True)
+    mf = FixedBatchScheduler(eng, 2).run(rf, ledger=True)
+    for a, b in zip(rc, rf):
+        assert a.image.tobytes() == b.image.tobytes(), a.rid
+    assert mc["energy"] == mf["energy"]
+
+
+@pytest.mark.requires_cuda
+def test_serve_diffusion_main_runs_on_the_card_by_default(cuda, capsys):
+    import json
+
+    from repro_torch.launch import serve_diffusion
+    runtime.reset_launch_counts()
+    serve_diffusion.main(["--smoke", "--continuous", "--slots", "2",
+                          "--requests", "2", "--steps", "2", "--ledger"])
+    head, _, body = capsys.readouterr().out.partition("\n")
+    assert "device cuda" in head
+    m = json.loads(body)
+    assert m["kernel_policy"]["backend"] == "cuda"
+    assert m["kernel_policy"]["self_attention"] == "fused"   # auto
+    assert m["kernel_policy"]["ffn"] == "reference"
+    assert runtime.launch_counts()["pssa_attention"] > 0
+    assert runtime.launch_counts().get("bitslice_matmul", 0) == 0

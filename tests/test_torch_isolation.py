@@ -26,6 +26,7 @@ bad = sorted(n for n in sys.modules
 print("MODULES", len([n for n in sys.modules if n.startswith("repro_torch")]))
 print("NEW", sorted(n for n in sys.modules
                     if n.startswith(("repro_torch.core.reuse",
+                                     "repro_torch.core.policies",
                                      "repro_torch.kernels.patch_",
                                      "repro_torch.configs.",
                                      "repro_torch.models.",
@@ -53,7 +54,9 @@ def test_port_imports_neither_jax_nor_repro():
             assert f"repro_torch.kernels.{kern}.{mod}" in new
     for mod in ("configs.base", "configs.mamba2_130m", "models.layers",
                 "models.ssm", "models.transformer", "launch.serve",
-                "diffusion.denoiser", "diffusion.dit", "configs.dit_s"):
+                "diffusion.denoiser", "diffusion.dit", "configs.dit_s",
+                "core.policies", "launch.cli", "launch.scheduler",
+                "launch.serve_diffusion"):
         assert f"repro_torch.{mod}" in new
 
 
@@ -93,6 +96,16 @@ def test_serve_runs_on_the_card_unless_asked_for_the_cpu():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "mamba2-130m", "--smoke"])
+
+
+def test_serve_diffusion_runs_on_the_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from repro_torch.launch import serve_diffusion
+    for argv in (["--smoke"], ["--smoke", "--continuous"],
+                 ["--smoke", "--kernels", "reference"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve_diffusion.main(argv)
 
 
 def test_chip_smoke_fails_without_card_or_alone(tmp_path):
