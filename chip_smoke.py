@@ -73,26 +73,39 @@ no result line):
                  goodput, occupancy; latents bit-equal to one-shot
                  witnesses at batch 4, the ledger against theirs); then
                  ``serve_diffusion.main`` in process at full width;
-9. bitmap      — the PSXU entry point ``dispatch.patch_bitmap`` on the
+9. router      — the cluster router (``launch.router``) at full width,
+                 replicas of 2 slots: eight requests through 1, 2 and 4
+                 replicas on the float FFN (images, merged int64 buckets
+                 and energy equal across the counts and to ``generate`` at
+                 batch 2 on the batches served), the slice route at 1
+                 against 2 replicas (bit-equal to its own batches, within
+                 a share of the DBSC-to-float distance across them), SLO
+                 overload degrading against queueing round for round,
+                 DiT-S/2 at 1 against 2 replicas, the serving phase's
+                 bursty trace through 2 x 2 replicas and a 4-slot
+                 scheduler, previews, ``router._main`` in process, and
+                 ``serve_diffusion --replicas 2`` in process at full width
+                 with a bank, an SLO and previews;
+10. bitmap     — the PSXU entry point ``dispatch.patch_bitmap`` on the
                  pruned SAS of one cond row at res 64/32/16 (full-width
                  weights): kernel against plain bit for bit, per-row sums
                  of the counts against the PSSA popcount, 3 launches;
-10. temporal   — the slice with temporal patch reuse: threshold 0 equals
+11. temporal   — the slice with temporal patch reuse: threshold 0 equals
                  the dense latents (as far as a dense witness agrees with
                  itself), threshold 0.05 launches 225/225/450/225;
-11. edit       — img2img replay at capacity 1/8 against recorded base
+12. edit       — img2img replay at capacity 1/8 against recorded base
                  caches: the same input computes nothing and returns the
                  base latents; a re-noised window stays within the cap and
                  runs PSSA on T/8 queries; an a-priori window runs no
                  patch delta;
-12. parity     — two full-width steps from the same latents, route against
+13. parity     — two full-width steps from the same latents, route against
                  route: the reference policy against the fused attention
                  kernels, then reference attention + DBSC against the
                  slice's route (fused + DBSC) on three seeds, then the
                  reference route against the fused route with temporal
                  reuse; latents, ledger headlines and per-layer PSSA and
                  reuse counters must agree within the limits below.
-13. serve      — mamba2-130m at full width (random weights from a seed)
+14. serve      — mamba2-130m at full width (random weights from a seed)
                  through ``repro_torch.launch.serve.serve``: batch 4, a
                  4096-token prompt, 64 greedy tokens, prefill's scan on the
                  ``ssd_scan`` kernel (24 launches, none in decode); the
@@ -1255,7 +1268,8 @@ def _policy_witnesses(torch, eng, reqs, policies, bank, rows: int = 2):
     integers before the one float32 conversion, as the accumulator does;
     calls of one request each would convert apart, and at full width
     (nnz past 2^24) the sums then differ in float32's last place.  A
-    lone request's terms double exactly.  (``stats_rows`` cannot pick
+    lone request's terms double exactly; a policy with no request makes
+    no call.  (``stats_rows`` cannot pick
     one row: under fused CFG the first block's self-attention runs
     before the tiling to [cond | uncond] and accounts every request row,
     as in the JAX package; ROADMAP Queue 3.)  Tiling scales every term
@@ -1263,6 +1277,8 @@ def _policy_witnesses(torch, eng, reqs, policies, bank, rows: int = 2):
     out_rows, outs = {}, {}
     for p, pol in enumerate(bank):
         mine = [r for r in range(len(reqs)) if policies[r] == p]
+        if not mine:
+            continue
         require(rows % len(mine) == 0 and (rows // len(mine)) & (
             rows // len(mine) - 1) == 0, f"{len(mine)} requests do not "
             f"tile {rows} rows by a power of two")
@@ -2828,6 +2844,398 @@ def serving_phase(torch, eng):
           f"{m['iter_wall_ms']:.3f}, compile_s {m['compile_s']:.2f}")
 
 
+# ---------------------------------------------------------------------------
+# router: the cluster router at full width
+# ---------------------------------------------------------------------------
+ROUTER_REQUESTS, ROUTER_SLOTS = 8, 2
+ROUTER_REPLICAS = (1, 2, 4)
+ROUTER_BANK = ("ddim,steps=25", "ddim,steps=12")
+ROUTER_DEADLINE = 37        # rounds: one ddim@25 wave, then a ddim@12 one
+ROUTER_PREVIEW_EVERY = 5
+# On the slice route a replica's two rows share DBSC's per-tensor INT12
+# scale, so a request served beside another one (1 against 2 replicas)
+# is rounded otherwise (ROADMAP Queue 3 item 13).  Each image is held to
+# this share of its own DBSC-to-float distance, as DBSC_SLOT_SHARE holds
+# slot rows: ten times the largest share the H100 read, 0.1716 % (1.8e-4
+# to 2.1e-4 of 0.117 to 0.140; PERF.md §6).
+ROUTER_DBSC_SHARE = 0.0172
+
+
+def _route_run(torch, router, reqs, label, per_step, ledger=True):
+    """``router.run(reqs)`` with the events it streamed; launches per
+    replica step held to ``per_step``, no request dropped."""
+    from repro_torch.kernels import runtime
+    events, stream = [], router.stream
+
+    def recording(r):
+        for ev in stream(r):
+            events.append(ev)
+            yield ev
+    router.stream = recording
+    try:
+        runtime.reset_launch_counts()
+        m = router.run(reqs, ledger=ledger)
+        counts = runtime.launch_counts()
+    finally:
+        del router.stream
+    _hold_launches(counts, m["engine_steps"], per_step, label)
+    require(m["dropped"] == 0, f"{label}: {m['dropped']} dropped")
+    return m, events
+
+
+def _router_batches(events):
+    """The requests each replica admitted together (one admission round
+    fills a replica at t = 0), in slot order."""
+    groups = {}
+    for ev in events:
+        if ev["event"] == "admitted":
+            groups.setdefault((ev["replica"], ev["round"]), {})[
+                ev["slot"]] = ev["rid"]
+    return [tuple(g[s] for s in sorted(g)) for _, g in sorted(groups.items())]
+
+
+def _hold_batches(torch, eng, label, reqs, batches):
+    """Each request's image bit-equal to ``generate`` at batch
+    ROUTER_SLOTS on the batch it was served in; returns the witnesses
+    and the calls' integer counters (``_calls_seen``)."""
+    with _calls_seen(eng) as calls:
+        wit = _batch_witnesses(torch, eng, [reqs[i] for b in batches
+                                            for i in b], ROUTER_SLOTS)
+    for out, batch in zip(wit, batches):
+        host = out.images.cpu().numpy()
+        for j, rid in enumerate(batch):
+            require(reqs[rid].image.tobytes() == host[j].tobytes(),
+                    f"{label} request {rid}: image differs from generate "
+                    f"at batch {ROUTER_SLOTS} on its batch {batch}")
+    print(f"  {label}: {len(reqs)} images bit-equal to generate at batch "
+          f"{ROUTER_SLOTS} on the batches served {batches}")
+    return wit, calls
+
+
+def _router_line(label, m):
+    print(f"  {label}: rounds {m['rounds']}, engine_steps "
+          f"{m['engine_steps']}, step_wall_s {m['step_wall_s']:.4f} "
+          f"({1e3 * m['step_wall_s'] / max(m['engine_steps'], 1):.3f} ms "
+          f"a replica step), mean occupancy {m['mean_occupancy']:.4f}, "
+          f"{m['goodput_imgs_per_s']:.4f} images/s, makespan "
+          f"{m['makespan_s']:.3f} s")
+
+
+def _hold_across(torch, label, runs):
+    """Runs at several replica counts: images, merged int64 buckets (all
+    six planes) and energy dicts equal to the first count's."""
+    from repro_torch.diffusion.pipeline import merge_ledger_accums
+    (n0, (m0, reqs0, _)), rest = runs[0], runs[1:]
+    merged0 = merge_ledger_accums(st.accum for st in m0["states"])
+    for n, (m, reqs, _) in rest:
+        for a, b in zip(reqs0, reqs):
+            require(a.image.tobytes() == b.image.tobytes(),
+                    f"{label} request {a.rid}: {n} replicas against {n0}: "
+                    f"max |diff| {abs(a.image - b.image).max():.3e}")
+        merged = merge_ledger_accums(st.accum for st in m["states"])
+        for f in dataclasses.fields(merged):
+            require(torch.equal(getattr(merged, f.name),
+                                getattr(merged0, f.name)),
+                    f"{label}: {f.name} buckets differ at {n} replicas")
+        require(m["energy"] == m0["energy"],
+                f"{label}: energy at {n} replicas differs from {n0}")
+    print(f"  {label}: images, the merged int64 buckets (6 planes) and the "
+          f"energy dict equal at {[n for n, _ in runs]} replicas; "
+          f"mj_per_iter_with_ema {m0['energy']['mj_per_iter_with_ema']!r}")
+    return merged0
+
+
+@phase("router")
+def router_phase(torch, eng):
+    """The cluster router (``launch.router``) at full width, on the
+    slice's weights, replicas of ROUTER_SLOTS slots each.
+
+    (a) ``--kernels auto`` (fused, float FFN: 9 / 9 / 0 a replica step):
+        eight requests at t = 0 through 1, 2 and 4 replicas; images, the
+        merged int64 buckets and the energy equal across the counts; the
+        2-replica run's images bit-equal to ``generate`` at batch 2 on the
+        batches it served (the other counts follow), its buckets equal to
+        those calls' counters, its energy held by ``_hold_energy``.
+    (b) The slice route (fused + DBSC: 9 / 9 / 18), four of (a)'s
+        requests through 1 and 2 replicas: each bit-equal to ``generate``
+        on its own batches; across the counts each image within
+        ROUTER_DBSC_SHARE of its DBSC-to-float distance (from (a)).
+    (c) SLO overload on the float FFN: bank ddim@25 / ddim@12, 1 replica,
+        six requests at tier 0, a deadline of ROUTER_DEADLINE rounds;
+        degrading finishes [25, 25, 37, 37, 49, 49] rounds after arrival
+        (4 met), queueing [25, 25, 50, 50, 75, 75] (2 met); each image
+        bit-equal to a banked ``generate`` at batch 2 of its batch at
+        the tier it was served.
+    (d) DiT-S/2 on the float FFN, 1 against 2 replicas: images, buckets
+        and the energy key for key; 12 / 12 / 0 a replica step.
+    (e) Serving's bursty trace (2 at a time at SERVING_LOAD x a 4-slot
+        ``ContinuousScheduler``'s t = 0 images/s) through
+        ``ClusterRouter(eng, 2, 2)`` and ``ContinuousScheduler(eng, 4)``:
+        latency p50 / p95, queue wait p95, goodput, rounds, steps and
+        step walls, recorded only.
+    (f) Previews every ROUTER_PREVIEW_EVERY rounds on one run: the count,
+        the time to the first, every step in (0, 25); the images equal
+        (a)'s; a preview of the final latents equals the image.
+    (g) ``router._main(["--check-identity"])`` in this process (smoke
+        widths, on the card by default).
+    (h) ``serve_diffusion.main --replicas 2`` in this process at full
+        width (no ``--smoke``, the card by default, ``--kernels auto``):
+        2 x 2 slots, four requests, 25 steps, guidance 7.5, the ledger,
+        ROUTER_BANK as ``--tiers``, ROUTER_DEADLINE as ``--slo-steps``,
+        previews every ROUTER_PREVIEW_EVERY rounds; its JSON names the
+        ``cuda`` backend on the float FFN, every request finished, a
+        finite ``mj_per_iter_with_ema`` for each tier, the SLO met by
+        all four, and 9 / 9 / 0 launches per replica step (the warm-up's
+        one included).
+    """
+    import io
+
+    from repro_torch.configs import dit_s
+    from repro_torch.diffusion.engine import DiffusionEngine
+    from repro_torch.diffusion.pipeline import energy_report_multi
+    from repro_torch.diffusion.solvers import SamplerPolicy
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.launch import router as router_mod
+    from repro_torch.launch import serve_diffusion
+    from repro_torch.launch.router import ClusterRouter, RouterSLO
+    from repro_torch.launch.scheduler import (ContinuousScheduler,
+                                              apply_trace, bursty_trace,
+                                              make_requests)
+
+    dev, s = eng.device, ROUTER_SLOTS
+    require(eng.cfg.unet.kernel_policy == KernelPolicy(
+        self_attention="fused", cross_attention="fused", ffn="dbsc"),
+        "the slice engine is not on the slice route")
+    auto = KernelPolicy.parse("auto", device=dev)
+    float_eng = DiffusionEngine(dataclasses.replace(
+        eng.cfg, unet=dataclasses.replace(eng.cfg.unet, kernel_policy=auto)),
+        device=dev, params={"text": eng.text_params,
+                            "unet": eng.unet_params, "vae": eng.vae_params})
+    steps = eng.cfg.ddim.num_inference_steps
+
+    def requests(e, n=ROUTER_REQUESTS, **kw):
+        return make_requests(e.cfg, n, seed=41, device=dev, **kw)
+
+    # (a)
+    runs = []
+    for n in ROUTER_REPLICAS:
+        router = ClusterRouter(float_eng, n, s)
+        router.warmup()
+        reqs = requests(float_eng)
+        m, ev = _route_run(torch, router, reqs, f"(a) {n} x {s}",
+                           FLOAT_ROUTE_PER_STEP)
+        _router_line(f"(a) {n} x {s}", m)
+        runs.append((n, (m, reqs, ev)))
+    merged = _hold_across(torch, "(a)", runs)
+    m2, reqs2, ev2 = dict(runs)[2]
+    wit, calls = _hold_batches(torch, float_eng, "(a) 2 replicas", reqs2,
+                               _router_batches(ev2))
+    _hold_buckets(torch, "(a) merged", merged,
+                  _calls_buckets(torch, float_eng.cfg, calls))
+    rep = energy_report_multi(float_eng.cfg, [w.stats for w in wit])
+    _hold_energy("(a)", m2["energy"],
+                 {k: float(v) for k, v in rep.summary().items()},
+                 exact=False)
+    float_images = {r.rid: r.image for r in reqs2}
+
+    # (b)
+    served = {}
+    for n in (1, 2):
+        router = ClusterRouter(eng, n, s)
+        router.warmup()
+        reqs = requests(eng, 4)
+        require(all(torch.equal(a.latents, b.latents)
+                    for a, b in zip(reqs, reqs2)), "(b) requests differ")
+        m, ev = _route_run(torch, router, reqs, f"(b) {n} x {s}",
+                           SLICE_ROUTE_PER_STEP)
+        m.pop("states")
+        _router_line(f"(b) {n} x {s}", m)
+        _hold_batches(torch, eng, f"(b) {n} replica(s)", reqs,
+                      _router_batches(ev))
+        served[n] = reqs
+    shares = []
+    for a, b in zip(served[1], served[2]):
+        dist = float(abs(a.image - float_images[a.rid]).max())
+        diff = float(abs(a.image - b.image).max())
+        require(dist > 0, f"(b) request {a.rid}: DBSC equals the float FFN")
+        shares.append(diff / dist)
+        print(f"  (b) request {a.rid}: 1 against 2 replicas max|diff| "
+              f"{diff:.3e}, DBSC-to-float {dist:.3e}, share "
+              f"{diff / dist:.4%}")
+    require(max(shares) <= ROUTER_DBSC_SHARE,
+            f"(b) share {max(shares):.4%} > {ROUTER_DBSC_SHARE:.2%}")
+
+    # (c)
+    bank = tuple(SamplerPolicy.parse(b) for b in ROUTER_BANK)
+    want = {True: ([25, 25, 37, 37, 49, 49], 4),
+            False: ([25, 25, 50, 50, 75, 75], 2)}
+    cache = {}
+    for degrade in (True, False):
+        label = f"(c) {'degrade' if degrade else 'queue'}"
+        router = ClusterRouter(float_eng, 1, s, bank=bank, slo=RouterSLO(
+            ROUTER_DEADLINE, degrade))
+        router.warmup()
+        reqs = requests(float_eng, 6, bank=bank)
+        for r in reqs:
+            r.policy_index, r.tier = 0, bank[0].label()
+        m, ev = _route_run(torch, router, reqs, label, FLOAT_ROUTE_PER_STEP)
+        m.pop("states")
+        waits = [r.finish_round - r.arrival_round for r in reqs]
+        print(f"  {label}: rounds after arrival {waits}, met "
+              f"{m['slo']['met']}, degraded {m.get('degraded_per_tier')}, "
+              f"images per policy "
+              f"{[e['images'] for e in m['energy']['per_policy']]}")
+        require(waits == want[degrade][0] and
+                m["slo"]["met"] == want[degrade][1],
+                f"{label}: {waits}, met {m['slo']['met']}")
+        if degrade:
+            require(m["degraded_per_tier"] == {bank[0].label(): 4}
+                    and [e["images"] for e in m["energy"]["per_policy"]]
+                    == [2, 4], f"{label}: {m.get('degraded_per_tier')}")
+        _router_line(label, m)
+        for batch in _router_batches(ev):
+            pol = reqs[batch[0]].policy_index
+            if (batch, pol) not in cache:
+                cache[batch, pol] = _policy_witnesses(
+                    torch, float_eng, [(reqs[i].tokens, reqs[i].uncond_tokens,
+                                        reqs[i].latents) for i in batch],
+                    [pol] * len(batch), bank, rows=s)[0]
+            for j, i in enumerate(batch):
+                require(reqs[i].policy_index == pol and reqs[i].image
+                        .tobytes() == cache[batch, pol][j].images[0].cpu()
+                        .numpy().tobytes(), f"{label} request {i}: image "
+                        f"differs from its batch's witness at policy {pol}")
+    print(f"  (c): every image bit-equal to a banked generate at batch {s} "
+          f"of its batch at the tier served ({len(cache)} witnesses)")
+
+    # (d)
+    dcfg = dit_s.with_kernel_policy(dit_s.CONFIG, auto)
+    deng = DiffusionEngine(dcfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(20))
+    druns = []
+    for n in (1, 2):
+        router = ClusterRouter(deng, n, s)
+        router.warmup()
+        reqs = make_requests(dcfg, 4, seed=42, device=dev)
+        m, ev = _route_run(torch, router, reqs, f"(d) DiT {n} x {s}",
+                           DIT_FLOAT_PER_STEP)
+        _router_line(f"(d) DiT {n} x {s}", m)
+        druns.append((n, (m, reqs, ev)))
+    _hold_across(torch, "(d) DiT", druns)
+
+    # (e)
+    sched = ContinuousScheduler(float_eng, 4)
+    sched.warmup()
+    m0 = sched.run(requests(float_eng))
+    m0.pop("state")
+    _latency_line("(e) scheduler 4 slots, t = 0", m0, m0["mean_occupancy"])
+    print(f"  (e) t = 0: router 2 x 2 {m2['goodput_imgs_per_s']:.4f} "
+          f"images/s ({1e3 * m2['step_wall_s'] / m2['rounds']:.3f} ms a "
+          f"round) against scheduler 4 slots "
+          f"{m0['goodput_imgs_per_s']:.4f} ({m0['iter_wall_ms']:.3f} ms a "
+          f"step)")
+    rate = SERVING_LOAD * m0["goodput_imgs_per_s"]
+    gap = SERVING_BURST / rate
+    trace = bursty_trace(ROUTER_REQUESTS, SERVING_BURST, gap)
+    print(f"  (e): {ROUTER_REQUESTS} requests, {SERVING_BURST} every "
+          f"{gap:.4f} s ({rate:.4f} images/s)")
+    router = ClusterRouter(float_eng, 2, s)
+    mr, _ = _route_run(torch, router, apply_trace(requests(float_eng), trace),
+                       "(e) router 2 x 2", FLOAT_ROUTE_PER_STEP)
+    mr.pop("states")
+    ms = sched.run(apply_trace(requests(float_eng), trace))
+    ms.pop("state")
+    _latency_line("(e) router 2 x 2", mr, mr["mean_occupancy"])
+    _router_line("(e) router 2 x 2", mr)
+    _latency_line("(e) scheduler 4 slots", ms, ms["mean_occupancy"])
+    print(f"  (e) scheduler 4 slots: engine_steps {ms['engine_steps']}, "
+          f"step_wall_s {ms['step_wall_s']:.4f} ({ms['iter_wall_ms']:.3f} "
+          f"ms a step)")
+
+    # (f)
+    router = ClusterRouter(float_eng, 1, s, preview_every=ROUTER_PREVIEW_EVERY)
+    reqs = requests(float_eng, 2)
+    m, ev = _route_run(torch, router, reqs, "(f) previews",
+                       FLOAT_ROUTE_PER_STEP)
+    previews = [e for e in ev if e["event"] == "preview"]
+    n_pv = 2 * ((steps - 1) // ROUTER_PREVIEW_EVERY)
+    require(len(previews) == n_pv == m["preview"]["decodes"],
+            f"(f) {len(previews)} previews, expected {n_pv}")
+    require(all(0 < e["step"] < steps and e["image"].shape == (512, 512, 3)
+                for e in previews), "(f) a preview's step or shape")
+    for r in reqs:
+        require(r.image.tobytes() == float_images[r.rid].tobytes(),
+                f"(f) request {r.rid}: image differs from (a)'s")
+        require(r.first_preview_s <= r.finished_s,
+                f"(f) request {r.rid}: first preview after the image")
+    final = float_eng.decode_preview(m["states"][0], [0, 1]).cpu().numpy()
+    for j, r in enumerate(reqs):
+        require(final[j].tobytes() == r.image.tobytes(),
+                f"(f) request {r.rid}: a preview of the final latents "
+                f"differs from the image")
+    fp = m["preview"]["first_preview_s"]
+    print(f"  (f): {len(previews)} previews at steps "
+          f"{sorted({e['step'] for e in previews})}; time to first preview "
+          f"s mean {fp['mean']:.4f} max {fp['max']:.4f}; images "
+          f"{[round(r.finished_s, 4) for r in reqs]} s; a preview of the "
+          f"final latents bit-equal to the image")
+
+    # (g)
+    buf = io.StringIO()
+    runtime.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = router_mod._main(["--check-identity"])
+    out = json.loads(buf.getvalue())
+    counts = runtime.launch_counts()
+    require(rc == 0 and out["ledger_bit_identical_across_replicas"]
+            and out["images_bit_identical_across_replicas"]
+            and out["policies"]["kernels"]["backend"] == "cuda"
+            and counts.get("pssa_attention", 0) > 0
+            and counts.get("bitslice_matmul", 0) == 0,
+            f"(g) {out.get('policies')} {counts}")
+    print(f"  (g) router._main(['--check-identity']): identical across 1 "
+          f"and {out['replicas']} replicas; launches {json.dumps(counts)}")
+
+    # (h)
+    argv = ["--replicas", "2", "--slots", str(s), "--requests", "4",
+            "--steps", "25", "--guidance", "7.5", "--ledger", "--tiers",
+            *ROUTER_BANK, "--slo-steps", str(ROUTER_DEADLINE),
+            "--preview-every", str(ROUTER_PREVIEW_EVERY)]
+    runtime.reset_launch_counts()
+    buf = io.StringIO()
+    t_cli = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve_diffusion.main(argv)
+    t_cli = time.perf_counter() - t_cli
+    head, _, body = buf.getvalue().partition("\n")
+    print(f"  (h) {head}")
+    m = json.loads(body)
+    require(m["mode"] == "cluster_router" and m["replicas"] == 2
+            and m["requests"] == 4 and m["dropped"] == 0
+            and m["events"]["finished"] == 4,
+            f"(h) {m['mode']}, {m['requests']} requests, events "
+            f"{m['events']}")
+    require(m["kernel_policy"]["backend"] == "cuda"
+            and m["kernel_policy"]["self_attention"] == "fused"
+            and m["kernel_policy"]["ffn"] == "reference",
+            f"(h) kernel policy {m['kernel_policy']}")
+    per = m["energy"]["per_policy"]
+    require(len(per) == len(ROUTER_BANK) and all(
+        e["images"] > 0 and math.isfinite(e["mj_per_iter_with_ema"])
+        for e in per), f"(h) per-policy energy {per}")
+    require(m["slo"]["met"] == 4 and m["preview"]["decodes"] > 0,
+            f"(h) slo {m['slo']}, preview {m['preview']}")
+    _hold_launches(runtime.launch_counts(), m["engine_steps"] + 1,
+                   FLOAT_ROUTE_PER_STEP, "(h) CLI (warm-up step included)")
+    _latency_line("(h) CLI", m, m["mean_occupancy"])
+    _router_line("(h) CLI", m)
+    print(f"  (h) CLI: mj_per_iter_with_ema per tier "
+          f"{[e['mj_per_iter_with_ema'] for e in per]!r}, images per tier "
+          f"{[e['images'] for e in per]}, {m['preview']['decodes']} "
+          f"previews, compile_s {m['compile_s']:.2f}, the call {t_cli:.2f} s")
+
+
 def profile_breakdown(torch, run, tag: str, top: int = 15):
     """Device time by kernel over one more ``run()`` (which returns its
     wall seconds), under torch.profiler; this run's counts and wall time
@@ -3396,6 +3804,7 @@ def main() -> int:
         slot_reuse_phase(torch, eng)
         dit_phase(torch)
         serving_phase(torch, eng)
+        router_phase(torch, eng)
         bitmap_rows, bitmap_counts = bitmap_phase(torch, eng)
         reuse_counts, dense_s = temporal_phase(torch, eng)
         edit_phase(torch, eng, dense_s)

@@ -10,7 +10,8 @@ paper's headline numbers (EMA GB/iter, mJ/iter).  Slot serving reports
 from the integer buckets of a ``stats.LedgerAccum`` instead
 (``energy_report_from_accum``, per policy ``energy_report_banked``),
 through the same term assembly, so both give the same headline for the
-same requests.
+same requests; the cluster router sums its replicas' buckets first
+(``merge_ledger_accums``, ``energy_report_cluster``).
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from repro_torch.diffusion import ledger as L
 from repro_torch.diffusion import solvers as solvers_mod
 from repro_torch.diffusion.denoiser import make_denoiser
 from repro_torch.diffusion.sampler import DDIMConfig, sample
-from repro_torch.diffusion.stats import (UNetStats, attn_layer_order,
+from repro_torch.diffusion.stats import (LedgerAccum, UNetStats,
+                                         attn_layer_order,
                                          coerce_per_step_stats)
 from repro_torch.diffusion.text_encoder import (TextEncoderConfig,
                                                 encode_text,
@@ -414,6 +416,45 @@ def energy_report_from_accum(cfg: PipelineConfig, accum,
     rows per call)."""
     return _report_from_terms(cfg, ledger_terms_from_accum(cfg, accum),
                               full_geometry=full_geometry)
+
+
+def merge_ledger_accums(accums) -> LedgerAccum:
+    """Sum per-replica ``LedgerAccum``s into one cluster accumulator
+    (DESIGN.md §13).
+
+    Every replica scatters integer counters into the same bucket layout,
+    and integer addition is exact, associative and commutative: the
+    merged accumulator, and every report from it, is the same at any
+    replica count, routing decision or admission order that serves the
+    same requests.  All six int64 planes are summed, field by field.
+    """
+    accums = list(accums)
+    if not accums:
+        raise ValueError("merge_ledger_accums: no accumulators")
+    shapes = {tuple(a.nnz.shape) for a in accums}
+    if len(shapes) > 1:
+        raise ValueError(
+            f"merge_ledger_accums: mismatched bucket layouts {shapes} — "
+            f"replicas must share one bank/schedule")
+    return LedgerAccum(**{
+        f.name: sum((getattr(a, f.name) for a in accums[1:]),
+                    getattr(accums[0], f.name))
+        for f in dataclasses.fields(LedgerAccum)})
+
+
+def energy_report_cluster(cfg: PipelineConfig, accums, bank=None,
+                          full_geometry: bool = True):
+    """Energy report for a multi-replica (cluster-router) run: the
+    replicas' accumulators merged by :func:`merge_ledger_accums`, then
+    reported as one slot-serving run (:func:`energy_report_banked` under a
+    ``bank``, :func:`energy_report_from_accum` otherwise), so the headline
+    equals one replica's, and the same requests served one-shot."""
+    merged = merge_ledger_accums(accums)
+    if bank is not None:
+        return energy_report_banked(cfg, merged, bank,
+                                    full_geometry=full_geometry)
+    return energy_report_from_accum(cfg, merged,
+                                    full_geometry=full_geometry)
 
 
 def phase_breakdown_from_accum(cfg: PipelineConfig, accum, bank) -> list:

@@ -78,21 +78,23 @@ def policies_from_args(args) -> ServePolicies:
     return pol
 
 
-def config_from_args(args, policies=None):
+def config_from_args(args, policies=None, steps=None):
     """The ``PipelineConfig`` a CLI run serves.
 
     Geometry from ``--smoke`` (absent from the namespace: smoke),
-    denoiser family from ``--model``, schedule from ``--steps`` /
-    ``--guidance``, TIPS active for the first
-    ``steps * 20 // 25`` iterations (at least one), and the bundle's
-    policies installed (``policies=None``: parsed from ``args``).
+    denoiser family from ``--model``, schedule from ``--steps`` (the
+    ``steps`` keyword, where given, takes its place) and ``--guidance``,
+    TIPS active for the first ``steps * 20 // 25`` iterations (at least
+    one), and the bundle's policies installed (``policies=None``: parsed
+    from ``args``).
     """
     smoke = getattr(args, "smoke", True)
     cfg = PipelineConfig.smoke() if smoke else PipelineConfig()
     if getattr(args, "model", "unet") == "dit":
         dit = DiTConfig()
         cfg = dataclasses.replace(cfg, unet=dit.smoke() if smoke else dit)
-    steps = getattr(args, "steps", 5)
+    if steps is None:
+        steps = getattr(args, "steps", 5)
     guidance = getattr(args, "guidance", 1.0)
     cfg = dataclasses.replace(
         cfg,

@@ -61,7 +61,7 @@ class Request:
     admitted_s: Optional[float] = None
     finished_s: Optional[float] = None
     image: object = None            # (8S, 8S, 3) numpy
-    # filled by the cluster router (not ported yet: ROADMAP Queue 1 item 2)
+    # filled by the cluster router (launch.router):
     replica: Optional[int] = None   # replica that served the request
     degraded_from: str = ""         # original tier label if SLO-degraded
     arrival_round: Optional[int] = None   # router round of arrival

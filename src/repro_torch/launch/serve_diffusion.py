@@ -5,6 +5,8 @@
       --requests 8 --micro-batch 4 --steps 5 [--guidance 7.5] \\
       [--model unet|dit] [--kernels fused] [--tips adaptive] [--ledger] \\
       [--continuous --slots 4 --arrival-rate 2.0 --burst 2] \\
+      [--replicas 2 --slots 2 [--slo-steps 8 --no-degrade] \\
+       [--preview-every 5]] \\
       [--solver dpm2m,steps=12] [--tiers draft balanced quality] \\
       [--device cpu]
 
@@ -31,9 +33,17 @@ img2img request class (one base latent, a re-noised window per request);
 ``--ledger`` headline comes from the integer accumulator and equals the
 same requests served one-shot.
 
-The JAX package's ``--mesh`` (ROADMAP.md Queue 1 item 4) and its cluster
-router flags (``--replicas``, ``--slo-steps``, ``--no-degrade``,
-``--preview-every``; item 2) are not ported yet.
+Cluster routing (``--replicas N``, DESIGN.md §13): N slot states of
+``--slots`` rows each behind one admission queue
+(``launch.router.ClusterRouter``), FIFO into the least-occupied replica.
+``--slo-steps`` sets a deadline in router rounds, under which an overdue
+request degrades to a cheaper ``--tiers`` entry (``--no-degrade``:
+queues instead); ``--preview-every K`` streams preview decodes of
+in-flight rows.  The ``--ledger`` headline merges the replicas' integer
+accumulators and is the same at any replica count.
+
+The JAX package's ``--mesh`` (ROADMAP.md Queue 1 item 4) is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ from repro_torch.diffusion.pipeline import (aggregated_reuse_ratios_per_iter,
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.launch.cli import (add_policy_args, config_from_args,
                                     policies_from_args)
+from repro_torch.launch.router import ClusterRouter, RouterSLO
 from repro_torch.launch.scheduler import (ContinuousScheduler, apply_trace,
                                           bursty_trace, make_edit_requests,
                                           make_requests, micro_batches,
@@ -202,6 +213,51 @@ def serve_continuous(cfg, num_requests: int, num_slots: int,
     return metrics
 
 
+def serve_cluster(cfg, num_requests: int, replicas: int, num_slots: int,
+                  arrival_rate: float = 0.0, burst: int = 1,
+                  ledger: bool = False, seed: int = 7, bank=None,
+                  slo_steps: int = 0, degrade: bool = True,
+                  preview_every: int = 0, device=None) -> dict:
+    """Serve a synthetic trace through the multi-replica cluster router.
+
+    ``replicas`` slot states of ``num_slots`` rows share one engine
+    (``launch.router.ClusterRouter``); ``slo_steps`` (> 0) turns on
+    round-denominated SLO admission: under overload a request degrades to
+    a lower bank tier instead of queueing (``degrade=False``: the
+    queueing baseline).  ``preview_every`` streams preview decodes of
+    in-flight rows.  The ``ledger`` headline merges every replica's
+    integer accumulator (``pipeline.energy_report_cluster``) and is the
+    same at any replica count.  The engine's weights come from the
+    default generator (seed 0) on ``device`` (``None``: the card), the
+    requests from ``seed``.
+    """
+    device = resolve_device(device)
+    eng = DiffusionEngine(cfg, device=device)
+    router = ClusterRouter(eng, replicas, num_slots, bank=bank,
+                           slo=RouterSLO(deadline_steps=slo_steps or None,
+                                         degrade=degrade),
+                           preview_every=preview_every)
+    requests = make_requests(cfg, num_requests, seed=seed, bank=router.bank,
+                             device=device)
+    if arrival_rate > 0:
+        gap = burst / arrival_rate
+        apply_trace(requests, bursty_trace(num_requests, burst, gap))
+    compile_s = router.warmup()
+    metrics = router.run(requests, ledger=ledger)
+    metrics.pop("states")
+    metrics.update(
+        compile_s=compile_s,
+        kernel_policy=cfg.unet.kernel_policy.describe(device),
+        precision_policy=cfg.unet.precision.describe(),
+        reuse_policy=cfg.unet.reuse_policy.describe(),
+        steps_per_image=(cfg.ddim.num_inference_steps if router.bank is None
+                         else [p.num_steps for p in router.bank]),
+        workload="t2i",
+        arrival={"rate_per_s": arrival_rate, "burst": burst},
+    )
+    return metrics
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true",
@@ -228,6 +284,21 @@ def main(argv=None) -> None:
                          "(0 = whole queue available at t=0)")
     ap.add_argument("--burst", type=int, default=1,
                     help="arrivals per burst for --arrival-rate")
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="cluster-router mode (DESIGN.md §13): run N "
+                         "slot-state replicas behind occupancy routing "
+                         "(0 = single scheduler); uses --slots per replica")
+    ap.add_argument("--slo-steps", type=int, default=0,
+                    help="router SLO: enqueue->image deadline in router "
+                         "rounds; under overload requests degrade to a "
+                         "lower --tiers entry instead of queueing "
+                         "(0 = no SLO)")
+    ap.add_argument("--no-degrade", action="store_true",
+                    help="queue instead of degrading when the SLO cannot "
+                         "be met (the positive-control baseline)")
+    ap.add_argument("--preview-every", type=int, default=0,
+                    help="router streaming: decode progressive previews "
+                         "of in-flight rows every K rounds (0 = off)")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: the card; a "
                          "host without CUDA raises unless 'cpu' is given)")
@@ -247,10 +318,27 @@ def main(argv=None) -> None:
     if args.edit and not args.continuous:
         ap.error("--edit rides the slot scheduler's admit(latents=) path; "
                  "add --continuous")
-    if args.tiers and not args.continuous:
+    if args.tiers and not (args.continuous or args.replicas):
         ap.error("--tiers is mixed-tier serving over the slot engine; "
-                 "add --continuous (micro-batches share one schedule — "
-                 "use --solver for a single policy)")
+                 "add --continuous or --replicas (micro-batches share one "
+                 "schedule — use --solver for a single policy)")
+    if args.replicas < 0:
+        ap.error("--replicas must be >= 0")
+    if args.replicas:
+        if args.edit:
+            ap.error("--replicas serves t2i traces; --edit rides the "
+                     "single-replica --continuous path")
+        if args.continuous:
+            ap.error("--replicas IS continuous batching across N slot "
+                     "states; drop --continuous")
+    if args.slo_steps and not args.replicas:
+        ap.error("--slo-steps is cluster-router admission; add --replicas")
+    if args.slo_steps and not args.no_degrade and not args.tiers:
+        ap.error("SLO degradation picks lower tiers from a bank; add "
+                 "--tiers (or --no-degrade for the queueing baseline)")
+    if args.preview_every and not args.replicas:
+        ap.error("--preview-every is cluster-router streaming; add "
+                 "--replicas")
     if args.tiers and args.solver:
         ap.error("--tiers and --solver are exclusive: a bank already "
                  "names every policy in flight")
@@ -267,7 +355,9 @@ def main(argv=None) -> None:
     sampling = ("tiers " + "+".join(p.label() for p in bank) if bank
                 else sampler_policy.key() if sampler_policy
                 else f"ddim@{args.steps}")
-    batching = (f"continuous slots={args.slots}" if args.continuous
+    batching = (f"router replicas={args.replicas} slots={args.slots}"
+                if args.replicas
+                else f"continuous slots={args.slots}" if args.continuous
                 else f"micro-batch {args.micro_batch}")
     print(f"engine: model {args.model}, latent {cfg.unet.latent_size}^2, "
           f"sampling {sampling}, guidance {args.guidance} "
@@ -275,9 +365,18 @@ def main(argv=None) -> None:
           f"{batching}, kernels {args.kernels}, tips {args.tips}, "
           f"reuse {args.reuse}, workload {'edit' if args.edit else 't2i'}, "
           f"device {device}")
-    if args.continuous:
-        if bank is None and sampler_policy is not None:
-            bank = (sampler_policy,)      # single-tier bank
+    if bank is None and sampler_policy is not None and (
+            args.replicas or args.continuous):
+        bank = (sampler_policy,)          # single-tier bank
+    if args.replicas:
+        metrics = serve_cluster(cfg, args.requests, args.replicas,
+                                args.slots, arrival_rate=args.arrival_rate,
+                                burst=args.burst, ledger=args.ledger,
+                                bank=bank, slo_steps=args.slo_steps,
+                                degrade=not args.no_degrade,
+                                preview_every=args.preview_every,
+                                device=device)
+    elif args.continuous:
         metrics = serve_continuous(cfg, args.requests, args.slots,
                                    arrival_rate=args.arrival_rate,
                                    burst=args.burst, ledger=args.ledger,

@@ -648,3 +648,94 @@ def test_serve_diffusion_main_runs_on_the_card_by_default(cuda, capsys):
     assert m["kernel_policy"]["ffn"] == "reference"
     assert runtime.launch_counts()["pssa_attention"] > 0
     assert runtime.launch_counts().get("bitslice_matmul", 0) == 0
+
+
+@pytest.mark.requires_cuda
+def test_smoke_router_round_goes_through_the_kernels(cuda):
+    """``ClusterRouter`` on the slice route: 9 / 9 / 18 launches per
+    occupied replica per round; an idle replica is not stepped."""
+    from repro_torch.launch.router import ClusterRouter
+    from repro_torch.launch.scheduler import make_requests
+    eng = DiffusionEngine(_guided_smoke(SLICE))
+    router = ClusterRouter(eng, 2, 2)
+    router.warmup()
+    n = eng.cfg.ddim.num_inference_steps
+    for count, steps in ((3, 2 * n), (1, n)):
+        runtime.reset_launch_counts()
+        m = router.run(make_requests(eng.cfg, count, seed=4))
+        counts = runtime.launch_counts()
+        assert m["rounds"] == n and m["engine_steps"] == steps
+        assert counts["pssa_attention"] == 9 * steps
+        assert counts["cross_attention_tips"] == 9 * steps
+        assert counts["bitslice_matmul"] == 18 * steps
+
+
+@pytest.mark.requires_cuda
+def test_smoke_router_replica_counts_bit_equal_on_card(cuda):
+    """Four requests through 1 and 2 replicas x 2 slots on the fused
+    attention + float FFN: the replicas pair other requests, yet the
+    images, the merged int64 buckets and the energy dict are equal bit
+    for bit (every step runs 2 rows, so cuBLAS's row count is equal)."""
+    from repro_torch.diffusion.pipeline import merge_ledger_accums
+    from repro_torch.launch.router import ClusterRouter
+    from repro_torch.launch.scheduler import make_requests
+    eng = DiffusionEngine(_guided_smoke(KernelPolicy.fused()))
+    runs = []
+    for replicas in (1, 2):
+        reqs = make_requests(eng.cfg, 4, seed=6)
+        m = ClusterRouter(eng, replicas, 2).run(reqs, ledger=True)
+        runs.append((reqs, m, merge_ledger_accums(
+            st.accum for st in m["states"])))
+    (r1, m1, a1), (r2, m2, a2) = runs
+    for a, b in zip(r1, r2):
+        assert a.image.tobytes() == b.image.tobytes(), a.rid
+    for f in dataclasses.fields(a1):
+        assert torch.equal(getattr(a1, f.name), getattr(a2, f.name)), f.name
+    assert int(a1.nnz.sum()) > 0
+    assert m1["energy"] == m2["energy"]
+    assert m1["rounds"] == 2 * m2["rounds"]
+
+
+@pytest.mark.requires_cuda
+def test_router_main_runs_on_the_card_by_default(cuda, capsys):
+    import json
+
+    from repro_torch.launch import router
+    assert router._main(["--check-identity", "--requests", "4", "--steps",
+                         "2"]) == 0
+    m = json.loads(capsys.readouterr().out)
+    assert m["policies"]["kernels"]["backend"] == "cuda"
+    assert m["ledger_bit_identical_across_replicas"] is True
+    assert m["images_bit_identical_across_replicas"] is True
+
+
+@pytest.mark.requires_cuda
+def test_serve_diffusion_main_replicas_runs_on_the_card_by_default(cuda,
+                                                                  capsys):
+    """``serve_diffusion --replicas 2`` with a bank, an SLO and previews,
+    on the card with no ``--device``: fused attention on the float FFN,
+    9 / 9 / 0 launches per replica step (the warm-up's one included)."""
+    import json
+    import math
+
+    from repro_torch.launch import serve_diffusion
+    runtime.reset_launch_counts()
+    serve_diffusion.main(["--smoke", "--replicas", "2", "--slots", "2",
+                          "--requests", "3", "--steps", "2", "--ledger",
+                          "--tiers", "ddim,steps=2", "ddim,steps=1",
+                          "--slo-steps", "3", "--preview-every", "1"])
+    head, _, body = capsys.readouterr().out.partition("\n")
+    assert "device cuda" in head and "router replicas=2" in head
+    m = json.loads(body)
+    assert m["mode"] == "cluster_router" and m["events"]["finished"] == 3
+    assert m["kernel_policy"]["backend"] == "cuda"
+    assert m["kernel_policy"]["self_attention"] == "fused"   # auto
+    assert m["kernel_policy"]["ffn"] == "reference"
+    assert m["preview"]["decodes"] > 0 and m["slo"]["met"] == 3
+    assert all(math.isfinite(e["mj_per_iter_with_ema"])
+               for e in m["energy"]["per_policy"])
+    steps = m["engine_steps"] + 1
+    counts = runtime.launch_counts()
+    assert counts["pssa_attention"] == 9 * steps
+    assert counts["cross_attention_tips"] == 9 * steps
+    assert counts.get("bitslice_matmul", 0) == 0

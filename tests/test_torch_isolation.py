@@ -56,7 +56,7 @@ def test_port_imports_neither_jax_nor_repro():
                 "models.ssm", "models.transformer", "launch.serve",
                 "diffusion.denoiser", "diffusion.dit", "configs.dit_s",
                 "core.policies", "launch.cli", "launch.scheduler",
-                "launch.serve_diffusion"):
+                "launch.serve_diffusion", "launch.router"):
         assert f"repro_torch.{mod}" in new
 
 
@@ -103,9 +103,19 @@ def test_serve_diffusion_runs_on_the_card_unless_asked_for_the_cpu():
         pytest.skip("this host has a CUDA device")
     from repro_torch.launch import serve_diffusion
     for argv in (["--smoke"], ["--smoke", "--continuous"],
-                 ["--smoke", "--kernels", "reference"]):
+                 ["--smoke", "--kernels", "reference"],
+                 ["--smoke", "--replicas", "2"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve_diffusion.main(argv)
+
+
+def test_router_runs_on_the_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from repro_torch.launch import router
+    for argv in ([], ["--check-identity"], ["--kernels", "reference"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            router._main(argv)
 
 
 def test_chip_smoke_fails_without_card_or_alone(tmp_path):
