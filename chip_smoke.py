@@ -86,26 +86,38 @@ no result line):
                  scheduler, previews, ``router._main`` in process, and
                  ``serve_diffusion --replicas 2`` in process at full width
                  with a bank, an SLO and previews;
-10. bitmap     — the PSXU entry point ``dispatch.patch_bitmap`` on the
+10. autotune   — the compiled-path kernel policy at full width: the
+                 committed autotune table validates and covers its
+                 geometries; at each, every launch-knob candidate bit-equal
+                 to the launch rule, the winner timed beside the rule;
+                 ``autotuned`` + DBSC bit-equal to ``fused`` + DBSC for
+                 BK-SDM and DiT-S/2 (225/225/450, 300/300/600, the ledger
+                 key for key) and every geometry of those runs, of a reuse
+                 run and of a 4-slot step in the table;
+                 ``ffn_quant=int8`` bit-equal to the DBSC route with no
+                 bit-slice kernel launch; ``serve_diffusion.main`` in
+                 process at full width on ``--kernels autotuned`` and on
+                 ``--kernels ffn=dbsc,ffn_quant=int8``;
+11. bitmap     — the PSXU entry point ``dispatch.patch_bitmap`` on the
                  pruned SAS of one cond row at res 64/32/16 (full-width
                  weights): kernel against plain bit for bit, per-row sums
                  of the counts against the PSSA popcount, 3 launches;
-11. temporal   — the slice with temporal patch reuse: threshold 0 equals
+12. temporal   — the slice with temporal patch reuse: threshold 0 equals
                  the dense latents (as far as a dense witness agrees with
                  itself), threshold 0.05 launches 225/225/450/225;
-12. edit       — img2img replay at capacity 1/8 against recorded base
+13. edit       — img2img replay at capacity 1/8 against recorded base
                  caches: the same input computes nothing and returns the
                  base latents; a re-noised window stays within the cap and
                  runs PSSA on T/8 queries; an a-priori window runs no
                  patch delta;
-13. parity     — two full-width steps from the same latents, route against
+14. parity     — two full-width steps from the same latents, route against
                  route: the reference policy against the fused attention
                  kernels, then reference attention + DBSC against the
                  slice's route (fused + DBSC) on three seeds, then the
                  reference route against the fused route with temporal
                  reuse; latents, ledger headlines and per-layer PSSA and
                  reuse counters must agree within the limits below.
-14. serve      — mamba2-130m at full width (random weights from a seed)
+15. serve      — mamba2-130m at full width (random weights from a seed)
                  through ``repro_torch.launch.serve.serve``: batch 4, a
                  4096-token prompt, 64 greedy tokens, prefill's scan on the
                  ``ssd_scan`` kernel (24 launches, none in decode); the
@@ -347,24 +359,12 @@ def delta_work(b, p, w):
 def rotating_ms(torch, fn, sets, reps: int = 30, warmup: int = 3) -> float:
     """Mean milliseconds of ``fn(*args)`` by CUDA events, the calls cycling
     through ``sets`` of inputs that together exceed the L2 cache, so each
-    call reads its inputs from device memory as the main path does.
-
-    A kernel of a few microseconds takes less time on the card than its
-    launch takes on the host, so the stream is first held by a 20 ms
-    ``torch.cuda._sleep`` while the host queues every call: the events
-    then time the calls back to back on the card."""
-    for i in range(warmup):
-        fn(*sets[i % len(sets)])
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(2e-2 * 1.98e9))   # ~20 ms at the boost clock
-    start.record()
-    for i in range(reps):
-        fn(*sets[i % len(sets)])
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    call reads its inputs from device memory as the main path does: one
+    round of ``runtime.min_ms`` (the stream held by a 20 ms sleep while
+    the host queues every call, so the events time the calls back to back
+    on the card)."""
+    from repro_torch.kernels import runtime
+    return runtime.min_ms(fn, sets, reps=1, calls=reps, warmup=warmup)
 
 
 def same_bits(torch, a, b) -> bool:
@@ -3236,6 +3236,259 @@ def router_phase(torch, eng):
           f"previews, compile_s {m['compile_s']:.2f}, the call {t_cli:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+AUTOTUNE_SLOTS = 4          # (c): the slot_step whose geometries the table
+#                             covers
+
+
+@contextlib.contextmanager
+def _recorded_lookups():
+    """Every (op, geometry, hit) ``dispatch._blocks`` asks the autotune
+    table for inside the block, in order of first use."""
+    from repro_torch.kernels import autotune
+    seen = {}
+    real = autotune.lookup
+
+    def spy(op, geom, **kw):
+        won = real(op, geom, **kw)
+        seen.setdefault((op, tuple(geom)), won is not None)
+        return won
+    autotune.lookup = spy
+    try:
+        yield seen
+    finally:
+        autotune.lookup = real
+
+
+@phase("autotune")
+def autotune_phase(torch, eng):
+    """The compiled-path kernel policy (``kernels.autotune``, the launch
+    knobs, ``ffn_quant=int8``) at full width.
+
+    (a) The committed table validates (every knob one its kernel takes),
+        names a card and covers ``DEFAULT_GEOMS``.
+    (b) At each table geometry, every candidate of its knob bit-equal to
+        the launch rule on the probe's inputs (outputs and counters); the
+        table's winner and the rule timed (``runtime.min_ms``: the best of
+        three rounds, the stream held, inputs rotated past the L2).
+    (c) ``autotuned`` with DBSC against ``fused()`` with DBSC: a BK-SDM
+        generate (the slice's weights) and a DiT-S/2 generate bit-equal,
+        225 / 225 / 450 and 300 / 300 / 600 launches on both, the ledger
+        headline key for key; then a BK-SDM generate under temporal reuse
+        and a 4-slot ``slot_step``: every geometry these four runs look up
+        is in the table.
+    (d) ``ffn=dbsc,ffn_quant=int8`` against ``ffn=dbsc`` on the BK-SDM
+        generate: images bit-equal, the headline key for key, no
+        ``bitslice_matmul`` launch (its products go to ``torch._int_mm``).
+    (e) ``serve_diffusion.main`` in this process at full width, 4 requests
+        on 4 slots over 25 steps, on ``--kernels autotuned`` and on
+        ``--kernels ffn=dbsc,ffn_quant=int8``: the cuda backend with the
+        spec's ``tuned`` / ``ffn_quant``, every request served, a finite
+        ``mj_per_iter_with_ema``, the launches a step (9 / 9 / 0 and
+        0 / 0 / 0, the warm-up's step included), every table lookup of
+        the autotuned run a hit, and two ``torch._int_mm`` products on the
+        card for each of the 18 DBSC matmuls a step of the int8 run.
+    """
+    import io
+
+    from repro_torch.configs import bk_sdm, dit_s
+    from repro_torch.core.reuse import ReusePolicy
+    from repro_torch.diffusion.engine import DiffusionEngine
+    from repro_torch.diffusion.pipeline import energy_report
+    from repro_torch.kernels import autotune, runtime
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.launch import serve_diffusion
+
+    # (a)
+    autotune.clear_cache()
+    table = autotune.load_table()
+    entries = table["entries"]
+    print(f"(a) table: {len(entries)} entries, generated on "
+          f"{json.dumps(table.get('generated_on'))}")
+    require(all(k.startswith("cuda/") for k in entries),
+            "(a) the table holds a key off the cuda backend")
+    missing = [autotune.make_key("cuda", op, g)
+               for op, gs in autotune.DEFAULT_GEOMS.items() for g in gs
+               if autotune.make_key("cuda", op, g) not in entries]
+    require(not missing, f"(a) DEFAULT_GEOMS not in the table: {missing}")
+    require(bool((table.get("generated_on") or {}).get("device")),
+            "(a) the table names no card")
+
+    # (b)
+    def outputs(mod, geom, blocks):
+        fn, sets = mod.autotune_probe(geom, blocks, device="cuda")
+        return fn(*sets[0])
+
+    print("(b) op geometry: candidates bit-equal to the rule; winner ms "
+          "against the rule's ms")
+    for key, won in entries.items():
+        _, op, geom = autotune.parse_key(key)
+        mod = autotune._op_module(op)
+        rule = {name: None for name in autotune.OP_KNOBS[op]}
+        want = outputs(mod, geom, rule)
+        cands = mod.autotune_candidates(geom)
+        for blocks in cands:
+            got = outputs(mod, geom, blocks)
+            require(all(same_bits(torch, a, b) if a.dtype == torch.float32
+                        else torch.equal(a, b) for a, b in zip(got, want)),
+                    f"(b) {key} {blocks} differs from the launch rule")
+        del want
+        t = {}
+        for name, blocks in (("winner", won), ("rule", rule)):
+            fn, sets = mod.autotune_probe(geom, blocks, device="cuda")
+            t[name] = runtime.min_ms(fn, sets)
+            del fn, sets
+        print(f"  {key}: {len(cands)} bit-equal; winner {json.dumps(won)} "
+              f"{t['winner']:.4f} ms, rule {t['rule']:.4f} ms "
+              f"({t['winner'] / t['rule']:.3f}x)")
+
+    # (c), (d)
+    params = {"text": eng.text_params, "unet": eng.unet_params,
+              "vae": eng.vae_params}
+    slice_pol = dataclasses.replace(KernelPolicy.fused(), ffn="dbsc")
+    tuned_pol = dataclasses.replace(slice_pol, tuned=True)
+    int8_pol = dataclasses.replace(slice_pol, ffn_quant="int8")
+
+    def run(e, toks, un, lat):
+        runtime.reset_launch_counts()
+        out = e.generate(toks, uncond_tokens=un, latents=lat.clone())
+        counts = runtime.launch_counts()
+        return (out.images, counts,
+                energy_report(e.cfg, out.stats).summary(), e.last_wall_s)
+
+    def hold_pair(label, base, other, per_step, steps, bitslice):
+        img, counts, summary, wall = base
+        img_o, counts_o, summary_o, wall_o = other
+        want = {k: v * steps for k, v in per_step.items()}
+        want["bitslice_matmul"] = bitslice
+        got = {k: counts_o.get(k, 0) for k in want}
+        print(f"  {label}: launches {json.dumps(got)}; bit-equal "
+              f"{torch.equal(img_o, img)}; s/image {wall_o:.4f} against "
+              f"{wall:.4f}")
+        require(got == want, f"{label}: launches {got} != {want}")
+        require(torch.equal(img_o, img), f"{label}: images differ")
+        require(summary_o == summary, f"{label}: ledger headline "
+                f"{summary_o} != {summary}")
+
+    bcfg = bk_sdm.CONFIG
+    toks, un = _tokens(torch, bcfg, 7)
+    lat = eng.init_latents(1, torch.Generator(device="cuda").manual_seed(8))
+    e_base = DiffusionEngine(bk_sdm.with_kernel_policy(bcfg, slice_pol),
+                             params=params)
+    e_tuned = DiffusionEngine(bk_sdm.with_kernel_policy(bcfg, tuned_pol),
+                              params=params)
+    per_step = {"pssa_attention": 9, "cross_attention_tips": 9}
+    base = run(e_base, toks, un, lat)
+    with _recorded_lookups() as seen:
+        tuned = run(e_tuned, toks, un, lat)
+    print("(c) autotuned + DBSC against fused + DBSC")
+    hold_pair("BK-SDM", base, tuned, per_step, 25, 450)
+
+    dcfg = dit_s.CONFIG
+    d_base = DiffusionEngine(dit_s.with_kernel_policy(dcfg, slice_pol),
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(20))
+    dparams = {"text": d_base.text_params, "unet": d_base.unet_params,
+               "vae": d_base.vae_params}
+    d_tuned = DiffusionEngine(dit_s.with_kernel_policy(dcfg, tuned_pol),
+                              params=dparams)
+    dtoks, dun = _tokens(torch, dcfg, 27)
+    dlat = d_base.init_latents(1, torch.Generator(device="cuda")
+                               .manual_seed(28))
+    d_base.generate(dtoks, uncond_tokens=dun, latents=dlat.clone())  # warm
+    dbase = run(d_base, dtoks, dun, dlat)
+    with _recorded_lookups() as dseen:
+        dtuned = run(d_tuned, dtoks, dun, dlat)
+    hold_pair("DiT-S/2", dbase, dtuned, {k: 12 for k in per_step}, 25, 600)
+    del d_base, d_tuned
+
+    e_reuse = DiffusionEngine(bk_sdm.with_kernel_policy(
+        _with_reuse(bcfg, ReusePolicy.temporal(REUSE_THRESHOLD)), tuned_pol),
+        params=params)
+    with _recorded_lookups() as rseen:
+        e_reuse.generate(toks, uncond_tokens=un, latents=lat.clone())
+        state = e_tuned.init_slots(AUTOTUNE_SLOTS)
+        for s in range(AUTOTUNE_SLOTS):
+            t_s, u_s, l_s = _slot_request(torch, e_tuned, 60 + 2 * s)
+            state = e_tuned.admit(state, s, t_s, uncond_tokens=u_s,
+                                  latents=l_s)
+        e_tuned.slot_step(state)
+    torch.cuda.synchronize()
+    looked = {**seen, **dseen, **rseen}
+    for (op, geom), hit in sorted(looked.items()):
+        print(f"  looked up {autotune.make_key('cuda', op, geom)}: "
+              f"{'hit' if hit else 'MISS'}")
+    misses = [k for k, hit in looked.items() if not hit]
+    require(not misses, f"(c) geometries not in the table: {misses}")
+    del e_reuse, state
+
+    print("(d) ffn_quant=int8 against ffn=dbsc")
+    e_int8 = DiffusionEngine(bk_sdm.with_kernel_policy(bcfg, int8_pol),
+                             params=params)
+    hold_pair("BK-SDM int8", base, run(e_int8, toks, un, lat), per_step, 25,
+              0)
+    del e_base, e_tuned, e_int8
+
+    print("(e) serve_diffusion.main on the compiled specs")
+    no_kernel = {k: 0 for k in FLOAT_ROUTE_PER_STEP}
+    int8_per_step = 2 * SLICE_ROUTE_PER_STEP["bitslice_matmul"]
+    for spec, launches, products in (
+            ("autotuned", FLOAT_ROUTE_PER_STEP, 0),
+            ("ffn=dbsc,ffn_quant=int8", no_kernel, int8_per_step)):
+        argv = ["--continuous", "--slots", str(AUTOTUNE_SLOTS), "--requests",
+                str(AUTOTUNE_SLOTS), "--steps", "25", "--guidance", "7.5",
+                "--ledger", "--kernels", spec]
+        devices = []
+        real = torch._int_mm
+
+        def spy(a, b):
+            devices.append(a.device.type)
+            return real(a, b)
+        torch._int_mm = spy
+        runtime.reset_launch_counts()
+        buf = io.StringIO()
+        t_cli = time.perf_counter()
+        try:
+            with _recorded_lookups() as eseen, \
+                    contextlib.redirect_stdout(buf):
+                serve_diffusion.main(argv)
+        finally:
+            torch._int_mm = real
+        t_cli = time.perf_counter() - t_cli
+        counts = runtime.launch_counts()
+        head, _, body = buf.getvalue().partition("\n")
+        print(f"  (e) {head}")
+        m = json.loads(body)
+        pol = m["kernel_policy"]
+        require(pol["backend"] == "cuda"
+                and pol["tuned"] == (spec == "autotuned")
+                and pol["ffn_quant"] == ("int8" if products else "model")
+                and pol["ffn"] == ("dbsc" if products else "reference"),
+                f"(e) {spec}: kernel policy {pol}")
+        require(m["requests"] == AUTOTUNE_SLOTS
+                and math.isfinite(m["latency_s"]["max"]),
+                f"(e) {spec}: {m['requests']} requests, latency "
+                f"{m['latency_s']}")
+        require(math.isfinite(m["energy"]["mj_per_iter_with_ema"]),
+                f"(e) {spec}: non-finite mj_per_iter_with_ema")
+        steps = m["engine_steps"] + 1
+        _hold_launches(counts, steps, launches,
+                       f"(e) {spec} (warm-up step included)")
+        require(len(devices) == products * steps
+                and set(devices) <= {"cuda"},
+                f"(e) {spec}: {len(devices)} torch._int_mm products on "
+                f"{set(devices)}, expected {products * steps} on cuda")
+        misses = [k for k, hit in eseen.items() if not hit]
+        require(not misses and (bool(eseen) == (spec == "autotuned")),
+                f"(e) {spec}: {len(eseen)} geometries looked up, misses "
+                f"{misses}")
+        _latency_line(f"(e) {spec}", m, m["mean_occupancy"])
+        print(f"  (e) {spec}: {len(devices)} torch._int_mm products, "
+              f"{len(eseen)} table geometries (all hits); "
+              f"mj_per_iter_with_ema {m['energy']['mj_per_iter_with_ema']!r}, "
+              f"iter_wall_ms {m['iter_wall_ms']:.3f}, the call {t_cli:.2f} s")
+
+
 def profile_breakdown(torch, run, tag: str, top: int = 15):
     """Device time by kernel over one more ``run()`` (which returns its
     wall seconds), under torch.profiler; this run's counts and wall time
@@ -3805,6 +4058,7 @@ def main() -> int:
         dit_phase(torch)
         serving_phase(torch, eng)
         router_phase(torch, eng)
+        autotune_phase(torch, eng)
         bitmap_rows, bitmap_counts = bitmap_phase(torch, eng)
         reuse_counts, dense_s = temporal_phase(torch, eng)
         edit_phase(torch, eng, dense_s)

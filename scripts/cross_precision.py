@@ -77,7 +77,7 @@ def accuracy(torch, libs, stream):
             else:
                 err = fn(*ptrs, bh, 1, tq, tk, d, 0, float(d) ** 0.5,
                          tq * d, 0, d, tk * d, 0, d, tk * d, 0, d,
-                         tq * d, 0, d, stream)
+                         tq * d, 0, d, 0, stream)
             if err:
                 raise RuntimeError(f"{name}: launch failed: CUDA error {err}")
             torch.cuda.synchronize()

@@ -89,7 +89,7 @@ def setup(torch, chip_smoke):
             err = lib.launch_pssa_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 nnz.data_ptr(), xr.data_ptr(), bh, tq, tk, tk, d, patch,
-                1.0 / math.sqrt(d), chip_smoke.THRESHOLD, stream)
+                1.0 / math.sqrt(d), chip_smoke.THRESHOLD, 0, stream)
             if err:
                 raise RuntimeError(f"launch failed: CUDA error {err}")
         return run

@@ -67,17 +67,20 @@ def self_attention_pssa(q, k, v, patch: int,
 def self_attention_pssa_fused(q, k, v, patch: int,
                               threshold: float = pssa.DEFAULT_THRESHOLD,
                               stats_rows: int | None = None,
+                              bq: int | None = None,
                               row_stats: bool = False) -> SelfAttnOut:
     """``self_attention_pssa`` through the PSSA kernel (always prunes).
 
     The queries (B, H, Tq, d) may be fewer than the keys (B, H, Tk, d):
     under temporal reuse they are gathered to the active patch rows.
+    ``bq`` is the kernel's query rows a block (``None``: its launch rule).
     ``row_stats`` folds the kernel's per-query counters over heads and
     queries only: (B, H, Tq) -> (B,) ``pssa.PSSARowCounters``.
     """
     b, h, tq, _ = q.shape
     tk = k.shape[2]
-    out, nnz_rows, xor_rows = pssa_attention(q, k, v, threshold, patch=patch)
+    out, nnz_rows, xor_rows = pssa_attention(q, k, v, threshold, patch=patch,
+                                             bq=bq)
     rows = b if stats_rows is None else stats_rows
     if row_stats:
         return SelfAttnOut(out=out, stats=pssa.PSSARowCounters(
@@ -141,11 +144,13 @@ def cross_attention_tips(q, k_text, v_text, precision,
 
 def cross_attention_tips_fused(q, k_text, v_text, precision,
                                stats_rows: int | None = None,
+                               bq: int | None = None,
                                row_stats: bool = False,
                                threshold_scale=None) -> CrossAttnOut:
-    """``cross_attention_tips`` through the cross-attention kernel."""
+    """``cross_attention_tips`` through the cross-attention kernel; ``bq``
+    its query rows a block (``None``: its launch rule)."""
     out, cas_bh = cross_attention_cas(q, k_text, v_text,
-                                      cls_index=precision.cls_index)
+                                      cls_index=precision.cls_index, bq=bq)
     cas = cas_bh.mean(dim=-2)                                   # (B, Tq)
     spotted, important_full = _spot_and_slice(cas, precision, stats_rows,
                                               row_stats, threshold_scale)

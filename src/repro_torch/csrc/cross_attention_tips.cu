@@ -59,7 +59,10 @@
 //   of QK^T (the partial scores are summed through shared memory in a
 //   fixed order) and its n-tiles of P.V.  At res 16 (16 heads, Tq = 256,
 //   d = 160) that is 256 blocks, a warp doing the work of a res-64 warp:
-//   2.6x faster than 256 blocks of 1 warp over all of d.
+//   2.6x faster than 256 blocks of 1 warp over all of d.  The caller may
+//   fix the rows a block instead of the rule (the autotuner's
+//   ``cross_block_q``): 16, 32, 64 or 128 below d = 81, 16 from it on.
+//   Each warp owns its 16 rows, so every choice gives the same bits.
 //
 // What still holds it (scripts/cross_ablation.py, PERF.md): at res 64 the
 // MMAs with their fragment reads (QK^T 32 %, P.V 26 %, of which the small
@@ -475,7 +478,13 @@ template <int KS, int NT, int DS>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                    float* cas, int b, int heads, int tq, int tk, int d,
                    int cls_index, float sm_denom, Layout qs, Layout ks,
-                   Layout vs, Layout os, cudaStream_t stream) {
+                   Layout vs, Layout os, int rows, cudaStream_t stream) {
+  // rows a block: 0 takes the rule below; else 16 a warp (DS warps on one
+  // 16-row tile where DS > 1)
+  if (rows != 0 && !(DS == 1 ? rows == 16 || rows == 32 || rows == 64 ||
+                                   rows == 128
+                             : rows == 16))
+    return cudaErrorInvalidValue;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -489,9 +498,10 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
   // 4 warps a block, fewer where that leaves SMs without a block; with DS >
   // 1, DS warps on one 16-row tile
   int warps = DS > 1 ? DS : MAX_WARPS;
-  while (DS == 1 && warps > 1 &&
+  while (rows == 0 && DS == 1 && warps > 1 &&
          (long long)((tq + 16 * warps - 1) / (16 * warps)) * bh < sm_count())
     warps /= 2;
+  if (rows != 0) warps = rows * DS / 16;
   const int kvec = d % 4 == 0 && (uintptr_t)k % 16 == 0 &&
                    (uintptr_t)v % 16 == 0 && quad(ks.b) && quad(ks.h) &&
                    quad(ks.t) && quad(vs.b) && quad(vs.h) && quad(vs.t);
@@ -499,8 +509,8 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                    even(qs.h) && even(qs.t);
   const int ovec = d % 2 == 0 && (uintptr_t)out % 8 == 0 && even(os.b) &&
                    even(os.h) && even(os.t);
-  const int rows = 16 * warps / DS;
-  const dim3 grid((tq + rows - 1) / rows, bh);
+  const int block_rows = 16 * warps / DS;
+  const dim3 grid((tq + block_rows - 1) / block_rows, bh);
   cross_attention_tips_kernel<KS, NT, DS>
       <<<grid, 32 * warps, smem_bytes<KS>(8 * NT), stream>>>(
           q, k, v, out, cas, heads, tq, tk, d, cls_index, sm_denom, qs,
@@ -514,14 +524,16 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
 // k and v (B, H, Tk, d) and out (B, H, Tq, d) are addressed through their
 // (batch, head, row) element strides, d contiguous; cas is (B*H, Tq)
 // contiguous.  The wrapper has checked shapes: d in [1, 160], tk in
-// [1, 128], cls_index < tk, B*H <= 65535.
+// [1, 128], cls_index < tk, B*H <= 65535.  rows: query rows a block, 0 for
+// the launch rule (see the design notes); a value the kernel does not take
+// at this d is refused.
 extern "C" int launch_cross_attention_tips(
     const void* q, const void* k, const void* v, void* out, void* cas, int b,
     int heads, int tq, int tk, int d, int cls_index, float sm_denom,
     long long q_sb, long long q_sh, long long q_st, long long k_sb,
     long long k_sh, long long k_st, long long v_sb, long long v_sh,
     long long v_st, long long o_sb, long long o_sh, long long o_st,
-    void* stream) {
+    int rows, void* stream) {
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -544,11 +556,11 @@ extern "C" int launch_cross_attention_tips(
         ? (int)launch<KS, 10, (KS >= 12 ? 4 : 1)>(qf, kf, vf, of, cf, b,     \
                                                 heads, tq, tk, d,          \
                                                 cls_index, sm_denom, qs,   \
-                                                ks, vs, os, st)            \
+                                                ks, vs, os, rows, st)      \
         : (int)launch<KS, 16, (KS >= 12 ? 4 : 1)>(qf, kf, vf, of, cf, b,     \
                                                 heads, tq, tk, d,          \
                                                 cls_index, sm_denom, qs,   \
-                                                ks, vs, os, st);
+                                                ks, vs, os, rows, st);
   CROSS_CASE(1) CROSS_CASE(2) CROSS_CASE(3) CROSS_CASE(4) CROSS_CASE(5)
   CROSS_CASE(6) CROSS_CASE(8) CROSS_CASE(10) CROSS_CASE(12) CROSS_CASE(16)
   CROSS_CASE(20)

@@ -13,7 +13,10 @@
 // 1/8 + 4/patch bits' worth back; the res-64 slab of one cond row
 // (8 heads x 4096 queries x 4096 keys) reads 537 MB, about 0.16 ms at
 // 3.35 TB/s.  The work per key is one compare.
-// Design: one warp per row.  The warp walks the row in chunks of 32 words
+// Design: one warp per row, 8 rows a block (the caller may ask for 2, 4,
+// 16 or 32 instead, the autotuner's ``bitmap_block_rows``; rows are
+// independent, so every choice gives the same bits).  The warp walks the
+// row in chunks of 32 words
 // (1024 keys): it issues the chunk's 32 coalesced loads (lane i reads key
 // 32w + i) before any compare, so 4 KB per warp are in flight, and
 // __ballot_sync(s >= tau) over the warp IS packed word w, with lane 0 as
@@ -29,11 +32,12 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+constexpr int DEFAULT_WARPS = 8;        // rows a block by default
 constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(THREADS)
+// WARPS rows a block, one warp each
+template <int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
 patch_bitmap_kernel(const float* __restrict__ sas,
                     unsigned* __restrict__ packed, int* __restrict__ counts,
                     int rows, int tk, int patch, float threshold) {
@@ -93,19 +97,39 @@ patch_bitmap_kernel(const float* __restrict__ sas,
   }
 }
 
+template <int WARPS>
+cudaError_t launch(const float* sas, unsigned* packed, int* counts, int rows,
+                   int tk, int patch, float threshold, cudaStream_t stream) {
+  const int blocks = (rows + WARPS - 1) / WARPS;
+  patch_bitmap_kernel<WARPS><<<blocks, 32 * WARPS, 0, stream>>>(
+      sas, packed, counts, rows, tk, patch, threshold);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success).  The wrapper has
 // checked: tk % 32 == 0, tk % patch == 0, and patch divides 32 or is 32
-// times a power of two up to 1024.
+// times a power of two up to 1024.  block_rows: rows a block, 2, 4, 8, 16
+// or 32; 0 takes 8; any other value is refused.
 extern "C" int launch_patch_bitmap(const void* sas, void* packed,
                                    void* counts, int rows, int tk, int patch,
-                                   float threshold, void* stream) {
+                                   float threshold, int block_rows,
+                                   void* stream) {
+  const float* s = static_cast<const float*>(sas);
+  unsigned* pk = static_cast<unsigned*>(packed);
+  int* ct = static_cast<int*>(counts);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (block_rows == 0) block_rows = DEFAULT_WARPS;
+  if (block_rows != 2 && block_rows != 4 && block_rows != 8 &&
+      block_rows != 16 && block_rows != 32)
+    return (int)cudaErrorInvalidValue;
   if (rows <= 0) return (int)cudaSuccess;
-  const int blocks = (rows + WARPS - 1) / WARPS;
-  patch_bitmap_kernel<<<blocks, THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(sas), static_cast<unsigned*>(packed),
-      static_cast<int*>(counts), rows, tk, patch, threshold);
-  return (int)cudaGetLastError();
+#define BITMAP_CASE(W) \
+  if (block_rows == W) \
+    return (int)launch<W>(s, pk, ct, rows, tk, patch, threshold, st);
+  BITMAP_CASE(2) BITMAP_CASE(4) BITMAP_CASE(8) BITMAP_CASE(16)
+  BITMAP_CASE(32)
+#undef BITMAP_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -12,7 +12,10 @@
 // res 64 read 21.0 MB (6.3 us at 3.35 TB/s).
 // Design: one block per (row, 2048-value chunk), so each patch is split
 // over ceil(W / 2048) blocks (10 at full width) and even the 32 patch rows
-// of res 16 give 320 blocks for the 132 SMs.  Loads are float4 when W is a
+// of res 16 give 320 blocks for the 132 SMs.  The caller may set the chunk
+// to 2, 4, 16 or 32 slices of 256 values instead of 8 (the autotuner's
+// ``reuse_block_patches``); max is order-free, so every chunk gives the
+// same bits.  Loads are float4 when W is a
 // multiple of 4 (every full-width shape), scalar otherwise.  Blocks
 // combine with atomicMax on the float's bits read as unsigned: |d| >= 0,
 // so the bit order is the float order, and a NaN (sign cleared by fabsf)
@@ -24,7 +27,8 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int CHUNK = 2048;         // values of one patch row per block
+constexpr int SLICE = 256;          // values of a chunk come in slices
+constexpr int DEFAULT_SLICES = 8;   // 2048 values of one patch row a block
 
 __device__ __forceinline__ unsigned abs_bits(float a, float b) {
   return __float_as_uint(fabsf(a - b));
@@ -33,10 +37,11 @@ __device__ __forceinline__ unsigned abs_bits(float a, float b) {
 template <bool VEC4>
 __global__ void __launch_bounds__(THREADS)
 patch_delta_kernel(const float* __restrict__ x, const float* __restrict__ r,
-                   unsigned* __restrict__ out, int w, int splits) {
+                   unsigned* __restrict__ out, int w, int splits,
+                   int chunk) {
   const int row = blockIdx.x / splits;
-  const int c0 = (blockIdx.x - row * splits) * CHUNK;
-  const int c1 = min(c0 + CHUNK, w);
+  const int c0 = (blockIdx.x - row * splits) * chunk;
+  const int c1 = min(c0 + chunk, w);
   const float* xr = x + (size_t)row * w;
   const float* rr = r + (size_t)row * w;
   unsigned m = 0u;
@@ -70,11 +75,18 @@ patch_delta_kernel(const float* __restrict__ x, const float* __restrict__ r,
 
 // Returns the CUDA error of the launch (0 on success).  The wrapper has
 // checked shapes and zeroed out; vec4 means W % 4 == 0 and both operands
-// are 16-byte aligned.
+// are 16-byte aligned.  slices: the chunk a block takes, in slices of 256
+// values, 2, 4, 8, 16 or 32; 0 takes 8; any other value is refused.
 extern "C" int launch_patch_delta(const void* x, const void* r, void* out,
-                                  int rows, int w, int vec4, void* stream) {
+                                  int rows, int w, int vec4, int slices,
+                                  void* stream) {
+  if (slices == 0) slices = DEFAULT_SLICES;
+  if (slices != 2 && slices != 4 && slices != 8 && slices != 16 &&
+      slices != 32)
+    return (int)cudaErrorInvalidValue;
   if (rows <= 0 || w <= 0) return (int)cudaSuccess;
-  const int splits = (w + CHUNK - 1) / CHUNK;
+  const int chunk = SLICE * slices;
+  const int splits = (w + chunk - 1) / chunk;
   const long long blocks = (long long)rows * splits;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const float* xf = static_cast<const float*>(x);
@@ -83,9 +95,9 @@ extern "C" int launch_patch_delta(const void* x, const void* r, void* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec4)
     patch_delta_kernel<true><<<(unsigned)blocks, THREADS, 0, st>>>(
-        xf, rf, o, w, splits);
+        xf, rf, o, w, splits, chunk);
   else
     patch_delta_kernel<false><<<(unsigned)blocks, THREADS, 0, st>>>(
-        xf, rf, o, w, splits);
+        xf, rf, o, w, splits, chunk);
   return (int)cudaGetLastError();
 }

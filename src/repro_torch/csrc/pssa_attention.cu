@@ -50,7 +50,10 @@
 //
 // Design (FlashAttention-2's layout, on mma.sync):
 // * A block of 4 warps takes 64 query rows (2 warps and 32 rows when
-//   Tq <= 256, so that res 16 fills the card); each warp owns 16 rows and
+//   Tq <= 256, so that res 16 fills the card; the caller may ask for 16, 32
+//   or 64 rows a block instead, the autotuner's ``attn_block_q``, and since
+//   no row depends on its block every choice gives the same bits); each
+//   warp owns 16 rows and
 //   keeps the 16 x 64 scores of a key tile in its accumulators.  No row
 //   reads another row's data, so a row's scores, m, l, keep bits and output
 //   are the same in any block.
@@ -582,8 +585,10 @@ template <int KS>
 cudaError_t launch(const float* q, const float* k, const float* v, float* out,
                    int* nnz, int* xr, int bh, int tq, int tk, int kv_len,
                    int d, int patch, float sm_scale, float threshold,
-                   cudaStream_t stream) {
-  const int threads = tq <= 256 ? 64 : MAX_THREADS;
+                   int block_q, cudaStream_t stream) {
+  // block_q query rows a block (16 a warp); 0: the launch rule
+  const int threads =
+      block_q > 0 ? 2 * block_q : (tq <= 256 ? 64 : MAX_THREADS);
   const int bq = threads / 2;
   const size_t smem = smem_bytes<KS>(bq);
   cudaError_t err = cudaFuncSetAttribute(
@@ -603,12 +608,16 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* out,
 
 // Returns the CUDA error of the launch (0 on success).  The wrapper has
 // checked shapes: d in [1, 160], patch divides 64 and kv_len, kv_len <= tk.
+// block_q: query rows a block, 16, 32 or 64; 0 takes the launch rule (32
+// where tq <= 256, else 64); any other value is refused.
 extern "C" int launch_pssa_attention(const void* q, const void* k,
                                      const void* v, void* out, void* nnz,
                                      void* xr, int bh, int tq, int tk,
                                      int kv_len, int d, int patch,
                                      float sm_scale, float threshold,
-                                     void* stream) {
+                                     int block_q, void* stream) {
+  if (block_q != 0 && block_q != 16 && block_q != 32 && block_q != 64)
+    return (int)cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
@@ -620,7 +629,7 @@ extern "C" int launch_pssa_attention(const void* q, const void* k,
 #define PSSA_CASE(KS)                                                      \
   if ((d + 7) / 8 <= KS)                                                   \
     return (int)launch<KS>(qf, kf, vf, of, ni, xi, bh, tq, tk, kv_len, d,  \
-                           patch, sm_scale, threshold, st);
+                           patch, sm_scale, threshold, block_q, st);
   PSSA_CASE(1) PSSA_CASE(2) PSSA_CASE(3) PSSA_CASE(4) PSSA_CASE(5)
   PSSA_CASE(6) PSSA_CASE(8) PSSA_CASE(10) PSSA_CASE(12) PSSA_CASE(16)
   PSSA_CASE(20)

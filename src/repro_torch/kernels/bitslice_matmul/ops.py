@@ -4,7 +4,9 @@ The paper's full datapath: INT12 activation quantization on ONE per-tensor
 scale (so TIPS rows can drop to the INT6 grid of the same scale), the
 bit-slice split, the integer matmul, and the output rescale.  A CUDA tensor
 goes through the hand-written kernel, a CPU tensor through the plain
-version; the integers are identical either way.
+version; ``quant_path="int8"`` runs the same integers as two int8 x int8 ->
+int32 library products on either device.  The integers are identical on
+every route.
 """
 from __future__ import annotations
 
@@ -13,20 +15,31 @@ import torch
 from repro_torch.core import quant
 from repro_torch.kernels.bitslice_matmul.kernel import (DATAFLOWS,
                                                        bitslice_matmul_kernel)
-from repro_torch.kernels.bitslice_matmul.ref import bitslice_matmul_ref
+from repro_torch.kernels.bitslice_matmul.ref import (bitslice_matmul_int8,
+                                                     bitslice_matmul_ref)
+
+QUANT_PATHS = ("model", "int8")
 
 
 def bitslice_matmul(x: torch.Tensor, w: torch.Tensor,
                     important: torch.Tensor | None = None,
-                    dataflow: str = "weight_stationary") -> torch.Tensor:
+                    dataflow: str = "weight_stationary",
+                    quant_path: str = "model") -> torch.Tensor:
     """``x (M, K) @ w (K, N)`` through the DBSC integer datapath.
 
     ``important``: bool (M,) TIPS mask; None -> every row INT12.
     ``dataflow``: the DBSC stationary mode (the same integers either way).
+    ``quant_path``: ``"model"`` runs the integer matmul as the model's
+    datapath (the kernel on the card, its plain version on the CPU);
+    ``"int8"`` as ``ref.bitslice_matmul_int8``.  The accumulators are
+    bit-identical, so the float output is too.
     """
     if dataflow not in DATAFLOWS:
         raise ValueError(f"bitslice_matmul: dataflow={dataflow!r}, "
                          f"expected one of {tuple(DATAFLOWS)}")
+    if quant_path not in QUANT_PATHS:
+        raise ValueError(f"bitslice_matmul: quant_path={quant_path!r}, "
+                         f"expected one of {QUANT_PATHS}")
     m = x.shape[0]
     qx = quant.quantize_act(x, quant.ACT_BITS_HIGH)
     qw = quant.quantize_weight(w)
@@ -37,7 +50,9 @@ def bitslice_matmul(x: torch.Tensor, w: torch.Tensor,
         vals = quant.mixed_precision_quantize(x, important, qx.scale).values
         prec = important.to(torch.int32)[:, None].contiguous()
     hi, lo = quant.bitslice_split(vals)
-    if x.is_cuda:
+    if quant_path == "int8":
+        acc = bitslice_matmul_int8(hi, lo, qw.values, prec)
+    elif x.is_cuda:
         acc = bitslice_matmul_kernel(hi.contiguous(), lo.contiguous(),
                                      qw.values.contiguous(), prec,
                                      dataflow=dataflow)

@@ -1,5 +1,6 @@
 """Plain PyTorch version of the DBSC bit-slice matmul (port of the JAX
-``bitslice_matmul_ref``), bit-identical to the kernel and to XLA's int32.
+``bitslice_matmul_ref``), bit-identical to the kernel and to XLA's int32,
+and the ``int8`` datapath (port of ``bitslice_matmul_int8``).
 
 ``torch.matmul`` has no int32 kernel on CUDA, so on the card the two
 products run in float64 — exact, since every partial sum stays below
@@ -35,3 +36,25 @@ def bitslice_matmul_ref(x_hi: torch.Tensor, x_lo: torch.Tensor,
         acc_hi = hi @ wl
         acc_lo = lo @ wl
     return wrap_int32(torch.bitwise_left_shift(acc_hi, 6) + acc_lo)
+
+
+def bitslice_matmul_int8(x_hi: torch.Tensor, x_lo: torch.Tensor,
+                         w: torch.Tensor, prec: torch.Tensor) -> torch.Tensor:
+    """The same integers through int8 x int8 -> int32 products.
+
+    The operands fit int8 exactly: each activation slice lies in [0, 63]
+    (``quant.bitslice_split``) and the weights in [-128, 127], and ``prec``
+    gates the low slice before the narrowing, as the JAX package's
+    ``bitslice_matmul_int8`` does.  The two products are
+    ``torch._int_mm`` calls, the counterpart of XLA's int8
+    ``dot_general`` (a plain library product outside any kernel, as the
+    JAX package leaves it to XLA), and the shift-add runs in int32, which
+    wraps as XLA's does.  Where ``_int_mm`` refuses a shape (on the card:
+    M <= 16, or K or N not a multiple of 8) it raises; nothing falls back.
+    """
+    hi8 = x_hi.to(torch.int8)
+    lo8 = (x_lo * prec).to(torch.int8)
+    w8 = w.to(torch.int8)
+    acc_hi = torch._int_mm(hi8, w8)
+    acc_lo = torch._int_mm(lo8, w8)
+    return torch.bitwise_left_shift(acc_hi, 6) + acc_lo

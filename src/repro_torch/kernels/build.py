@@ -105,19 +105,19 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, out, nnz, xor, bh, tq, tk, kv_len, d, patch, sm_scale,
-    # threshold, stream
+    # threshold, block_q, stream
     "launch_pssa_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _F, _F, _P],
+                              _I, _F, _F, _I, _P],
     # q, k, v, out, cas, b, heads, tq, tk, d, cls_index, sm_denom, the
-    # (batch, head, row) element strides of q, k, v and out, stream
+    # (batch, head, row) element strides of q, k, v and out, rows, stream
     "launch_cross_attention_tips": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _I, _F, *[_L] * 12, _P],
+                                    _I, _F, *[_L] * 12, _I, _P],
     # hi, lo, w, prec, out, m, k, n, dataflow, stream
     "launch_bitslice_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, ref, out, rows, w, vec4, stream
-    "launch_patch_delta": [_P, _P, _P, _I, _I, _I, _P],
-    # sas, packed, counts, rows, tk, patch, threshold, stream
-    "launch_patch_bitmap": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # x, ref, out, rows, w, vec4, slices, stream
+    "launch_patch_delta": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # sas, packed, counts, rows, tk, patch, threshold, block_rows, stream
+    "launch_patch_bitmap": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
     # x, dA, B, C, y, state, workspace, bh, t, p, n, chunk, heads, stream
     "launch_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P],

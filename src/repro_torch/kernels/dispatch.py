@@ -12,10 +12,17 @@ tensor and their plain PyTorch versions on a CPU tensor.  Stats parity
 (DESIGN.md §5): for any policy the reported counters equal the reference
 path's.
 
-The JAX package's block-size knobs, its autotune table and its
-``ffn_quant="int8"`` route are not ported yet: their specs raise in
-``KernelPolicy.parse`` (ROADMAP.md, Queue 1 items 3 and 5), and there is
-no interpreter on the card, so ``interpret=`` raises too.
+The compiled-path policy is the JAX package's too: ``ffn_quant="int8"``
+runs the DBSC integer matmuls as int8 x int8 -> int32 library products
+(the same integers), and ``tuned`` (the ``autotuned`` preset) launches the
+kernels with ``kernels.autotune``'s table winners, per op and geometry.
+The winners are CUDA launch dimensions under the JAX package's knob names
+(``autotune.OP_KNOBS``).  The JAX package's five block fields are not
+ported: their defaults (128, 128, 128, 64 and 8) are Pallas tile sizes
+that mean nothing to these kernels, and no spec sets them.  An untuned
+policy, and a geometry the table lacks, launch each kernel by its own
+launch rule.  No knob moves a bit.  There is no interpreter on the card,
+so ``interpret=`` raises.
 """
 from __future__ import annotations
 
@@ -25,7 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import attention, tips
-from repro_torch.kernels.bitslice_matmul.ops import bitslice_matmul
+from repro_torch.kernels import autotune
+from repro_torch.kernels.bitslice_matmul.ops import (QUANT_PATHS,
+                                                   bitslice_matmul)
 from repro_torch.kernels.patch_bitmap.ops import (
     patch_bitmap as _patch_bitmap_op)
 from repro_torch.kernels.patch_reuse.ops import patch_delta as _patch_delta_op
@@ -38,7 +47,7 @@ _CHOICES = {
     "bitmap": ("reference", "kernel"),
     "reuse": ("reference", "kernel"),
 }
-_PRESETS = ("reference", "fused", "auto")
+_PRESETS = ("reference", "fused", "auto", "autotuned")
 # the hand-written kernel behind each non-reference implementation
 _KERNELS = {
     ("self_attention", "fused"): "pssa_attention",
@@ -57,6 +66,14 @@ class KernelPolicy:
     ffn: str = "reference"
     bitmap: str = "reference"
     reuse: str = "reference"
+    # tuned=True: the kernels launch with the autotune table's winners,
+    # looked up per (device type, op, geometry) from the operand shapes on
+    # the host (``kernels.autotune.lookup``)
+    tuned: bool = False
+    # ffn_quant="int8": the DBSC route's integer matmuls run as int8 x int8
+    # -> int32 library products instead of the model's datapath; the
+    # integers are bit-identical
+    ffn_quant: str = "model"
 
     def __post_init__(self):
         for op, allowed in _CHOICES.items():
@@ -64,6 +81,10 @@ class KernelPolicy:
             if val not in allowed:
                 raise ValueError(
                     f"KernelPolicy.{op}={val!r}: expected one of {allowed}")
+        if self.ffn_quant not in QUANT_PATHS:
+            raise ValueError(
+                f"KernelPolicy.ffn_quant={self.ffn_quant!r}: expected one "
+                f"of {QUANT_PATHS}")
 
     @classmethod
     def reference(cls) -> "KernelPolicy":
@@ -89,26 +110,33 @@ class KernelPolicy:
         return cls.reference()
 
     @classmethod
+    def autotuned(cls) -> "KernelPolicy":
+        """``fused()`` with the autotune table's launch knobs.
+
+        The knobs come from ``kernels.autotune.lookup`` per (device type,
+        op, geometry); a geometry the table has not seen keeps the
+        kernels' launch rules, so the preset is always safe to select.
+        Routing is ``fused()``'s, and no knob moves a bit.
+        """
+        return dataclasses.replace(cls.fused(), tuned=True)
+
+    @classmethod
     def parse(cls, spec: str, device=None) -> "KernelPolicy":
         """Build a policy from a CLI spec (the ``--kernels`` flag).
 
-        ``spec`` is a preset (``reference`` | ``fused`` | ``auto``, the
-        last resolved for ``device``) or comma-separated ``op=impl``
+        ``spec`` is a preset (``reference`` | ``fused`` | ``auto`` |
+        ``autotuned``, ``auto`` resolved for ``device``) or comma-separated
+        ``op=impl`` / ``tuned={true,false}`` / ``ffn_quant={model,int8}``
         overrides on top of the reference preset, e.g.
-        ``"self_attention=fused,ffn=dbsc"``.  The JAX package's
-        ``autotuned``, ``tuned=``, ``ffn_quant=int8`` and ``interpret=``
-        raise: the port has no such route yet, and no spec maps silently
-        onto another.
+        ``"self_attention=fused,ffn=dbsc,ffn_quant=int8"``.  The JAX
+        package's ``interpret=`` raises: the kernels are CUDA and have no
+        interpreter, and no spec maps silently onto another.
         """
         spec = spec.strip()
         if spec == "auto":
             return cls.auto(device)
         if spec in _PRESETS:
             return getattr(cls, spec)()
-        if spec == "autotuned":
-            raise ValueError(
-                "kernel policy 'autotuned': the port has no autotune "
-                "table yet (ROADMAP.md, Queue 1 item 3)")
         fields = {}
         for item in filter(None, (s.strip() for s in spec.split(","))):
             if "=" not in item:
@@ -116,19 +144,15 @@ class KernelPolicy:
                     f"kernel policy spec {item!r}: expected op=impl or a "
                     f"preset in {_PRESETS}")
             op, impl = (s.strip() for s in item.split("=", 1))
-            if op in _CHOICES:
+            if op == "ffn_quant" or op in _CHOICES:
                 fields[op] = impl
             elif op == "tuned":
-                raise ValueError(
-                    f"kernel policy spec: tuned={impl!r}: the port has no "
-                    f"autotune table yet (ROADMAP.md, Queue 1 item 3)")
-            elif op == "ffn_quant":
-                if impl != "model":
+                try:
+                    fields[op] = {"true": True, "false": False}[impl.lower()]
+                except KeyError:
                     raise ValueError(
-                        f"kernel policy spec: ffn_quant={impl!r}: the port "
-                        f"runs the FFN's integers as the model's datapath "
-                        f"only ('model'); the int8 route is ROADMAP.md, "
-                        f"Queue 1 item 5")
+                        f"kernel policy spec: tuned={impl!r} (expected "
+                        f"true or false)") from None
             elif op == "interpret":
                 raise ValueError(
                     f"kernel policy spec: interpret={impl!r}: the kernels "
@@ -143,14 +167,26 @@ class KernelPolicy:
         """JSON-friendly view for serving metrics and records.
 
         ``backend`` is the device type the policy runs on (``device``,
-        ``None``: the card); ``tuned`` and ``ffn_quant`` carry the only
-        values the port has.
+        ``None``: the card).
         """
         return {**{op: getattr(self, op) for op in _CHOICES},
                 "backend": torch.device(
                     "cuda" if device is None else device).type,
-                "tuned": False,
-                "ffn_quant": "model"}
+                "tuned": self.tuned,
+                "ffn_quant": self.ffn_quant}
+
+
+def _blocks(policy: KernelPolicy, op: str, geom: tuple, device) -> dict:
+    """The launch knobs of one dispatch call: the autotune table's winner
+    for this (device type, op, geometry) when ``policy.tuned``, else none
+    (``{}``: each kernel's launch rule).  ``geom`` comes from shapes, so
+    the lookup runs on the host with no device sync; the table is read
+    once (``autotune.load_table`` memoises it).  The CPU has no entries,
+    and the plain versions take no knob."""
+    if not policy.tuned:
+        return {}
+    return autotune.lookup(op, geom,
+                           backend=torch.device(device).type) or {}
 
 
 def _ffn_mid_covered(precision, important):
@@ -162,7 +198,7 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")      # jax.nn.gelu's default
 
 
-def _ffn_reference(hn, p, important, precision=None):
+def _ffn_reference(policy, hn, p, important, precision=None):
     """GEGLU FFN, float matmuls; TIPS rows fake-quantized (per sample)."""
     if important is not None:
         hn = tips.apply_precision_mask(hn, important)
@@ -176,20 +212,24 @@ def _ffn_reference(hn, p, important, precision=None):
         + p["ff_out"]["b"]
 
 
-def _ffn_dbsc(hn, p, important, precision=None):
+def _ffn_dbsc(policy, hn, p, important, precision=None):
     """Both FFN matmuls through the DBSC bit-slice integer datapath; one
-    per-tensor activation scale over the whole (B*T, C) matrix."""
+    per-tensor activation scale over the whole (B*T, C) matrix.
+    ``policy.ffn_quant`` picks how the integer matmuls run (the same
+    integers either way, so no counter or ledger term moves)."""
     b, t, c = hn.shape
     bt = b * t
     imp_flat = important.reshape(bt) if important is not None else None
     gu = bitslice_matmul(hn.reshape(bt, c), p["ff_geglu"]["w"],
-                         important=imp_flat).reshape(b, t, -1) \
+                         important=imp_flat,
+                         quant_path=policy.ffn_quant).reshape(b, t, -1) \
         + p["ff_geglu"]["b"]
     g, u = torch.chunk(gu, 2, dim=-1)
     mid = _gelu(g) * u
     mid_imp = imp_flat if _ffn_mid_covered(precision, important) else None
     return bitslice_matmul(mid.reshape(bt, mid.shape[-1]), p["ff_out"]["w"],
-                           important=mid_imp).reshape(b, t, c) \
+                           important=mid_imp,
+                           quant_path=policy.ffn_quant).reshape(b, t, c) \
         + p["ff_out"]["b"]
 
 
@@ -215,9 +255,10 @@ def self_attention(policy: KernelPolicy, q, k, v, *, patch: int,
     if impl == "fused" and (reference_stats or not prune_scores or per_row):
         impl = "reference"
     if impl == "fused":
+        blk = _blocks(policy, "self_attention", (*q.shape, patch), q.device)
         return attention.self_attention_pssa_fused(
             q, k, v, patch=patch, threshold=threshold, stats_rows=stats_rows,
-            row_stats=row_stats)
+            bq=blk.get("attn_block_q"), row_stats=row_stats)
     return attention.self_attention_pssa(
         q, k, v, patch=patch, threshold=threshold,
         prune_scores=prune_scores, stats_rows=stats_rows,
@@ -235,9 +276,12 @@ def cross_attention(policy: KernelPolicy, q, k_text, v_text, *,
     each row's spotting threshold downstream of both implementations.
     """
     if policy.cross_attention == "fused":
+        blk = _blocks(policy, "cross_attention",
+                      (*q.shape, k_text.shape[2]), q.device)
         return attention.cross_attention_tips_fused(
             q, k_text, v_text, precision=precision, stats_rows=stats_rows,
-            row_stats=row_stats, threshold_scale=threshold_scale)
+            bq=blk.get("cross_block_q"), row_stats=row_stats,
+            threshold_scale=threshold_scale)
     return attention.cross_attention_tips(
         q, k_text, v_text, precision=precision, stats_rows=stats_rows,
         row_stats=row_stats, threshold_scale=threshold_scale)
@@ -245,14 +289,19 @@ def cross_attention(policy: KernelPolicy, q, k_text, v_text, *,
 
 def ffn_geglu(policy: KernelPolicy, hn, p, important, precision=None):
     """(B, T, C) normed hidden -> (B, T, C) FFN output (pre-residual)."""
-    return _FFN[policy.ffn](hn, p, important, precision)
+    return _FFN[policy.ffn](policy, hn, p, important, precision)
 
 
 def patch_bitmap(policy: KernelPolicy, sas, patch: int, threshold: float):
     """PSXU payload op: (..., Tq, Tk) SAS -> packed XOR bitmap
     (..., Tq, Tk/32) uint32 and per-patch popcounts (..., Tq, Tk/patch)."""
-    return _patch_bitmap_op(sas, patch, threshold,
-                            use_kernel=policy.bitmap == "kernel")
+    if policy.bitmap == "kernel":
+        tk = sas.shape[-1]
+        blk = _blocks(policy, "bitmap", (sas.numel() // tk, tk, patch),
+                      sas.device)
+        return _patch_bitmap_op(sas, patch, threshold, use_kernel=True,
+                                br=blk.get("bitmap_block_rows"))
+    return _patch_bitmap_op(sas, patch, threshold, use_kernel=False)
 
 
 def patch_delta(policy: KernelPolicy, x, x_ref, *, patch: int,
@@ -264,8 +313,13 @@ def patch_delta(policy: KernelPolicy, x, x_ref, *, patch: int,
     same values, so the bitmap and every reuse counter downstream are
     bit-identical across routing.
     """
+    if policy.reuse == "kernel":
+        blk = _blocks(policy, "reuse", (*x.shape, patch), x.device)
+        return _patch_delta_op(x, x_ref, patch=patch, threshold=threshold,
+                               use_kernel=True,
+                               bp=blk.get("reuse_block_patches"))
     return _patch_delta_op(x, x_ref, patch=patch, threshold=threshold,
-                           use_kernel=policy.reuse == "kernel")
+                           use_kernel=False)
 
 
 def support_matrix() -> list:

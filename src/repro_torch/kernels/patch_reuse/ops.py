@@ -17,18 +17,26 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.patch_reuse.kernel import patch_delta_kernel
+from repro_torch.kernels import runtime
+from repro_torch.kernels.patch_reuse.kernel import (BLOCK_SLICES_CHOICES,
+                                                    check_block_slices,
+                                                    patch_delta_kernel)
 from repro_torch.kernels.patch_reuse.ref import patch_delta_ref
 
 
 def patch_delta(x: torch.Tensor, x_ref: torch.Tensor, patch: int,
-                threshold: float, use_kernel: bool = True):
+                threshold: float, use_kernel: bool = True,
+                bp: int | None = None):
     """(B, T, C) tokens vs cached reference -> (delta, active) per patch.
 
     ``delta`` is the (B, T/patch) float32 max-abs difference, ``active``
     the bool bitmap ``delta >= threshold`` (all True at threshold 0).
-    ``use_kernel`` False takes the plain version on any device.
+    ``use_kernel`` False takes the plain version on any device.  ``bp`` is
+    the kernel's slices of one patch row a block
+    (``kernel.check_block_slices``; ``None``: 8); it moves no bit, and the
+    plain version has none.
     """
+    check_block_slices(bp)
     b, t, c = x.shape
     if t % patch:
         raise ValueError(f"patch_delta: T={t} is not a multiple of patch "
@@ -37,10 +45,43 @@ def patch_delta(x: torch.Tensor, x_ref: torch.Tensor, patch: int,
         def fold(a):
             return a.to(torch.float32).reshape(b, t // patch,
                                                patch * c).contiguous()
-        delta = patch_delta_kernel(fold(x), fold(x_ref))
+        delta = patch_delta_kernel(fold(x), fold(x_ref), bp=bp)
     else:
         delta = patch_delta_ref(x, x_ref, patch)
     return delta, delta >= threshold
+
+
+# ---------------------------------------------------------------------------
+# Autotune hooks (repro_torch.kernels.autotune): geometry = (b, t, c, patch)
+# ---------------------------------------------------------------------------
+AUTOTUNE_KNOBS = ("reuse_block_patches",)
+
+
+def autotune_candidates(geom: tuple) -> tuple:
+    """Every chunk the kernel takes, 8 (its launch rule) among them.
+
+    The JAX kernel groups whole patches into a block; the CUDA kernel
+    splits each patch row (patch * C values) over blocks instead, so here
+    ``reuse_block_patches`` counts the slices of 256 values
+    (``kernel.SLICE``) of one patch row that a block takes (8, 2048
+    values, by default).
+    """
+    return tuple({"reuse_block_patches": s} for s in BLOCK_SLICES_CHOICES)
+
+
+def autotune_probe(geom: tuple, blocks: dict, *, device=None):
+    """(fn, input sets) the autotuner times for one block config."""
+    b, t, c, patch = geom
+    dev = runtime.resolve_device(device)
+    n = runtime.rotation(2 * 4 * b * t * c, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((n, b, t, c), device=dev, generator=gen)
+    x_ref = x + 1e-4 * torch.randn((n, b, t, c), device=dev, generator=gen)
+
+    def fn(xs, rs):
+        return patch_delta(xs, rs, patch, 1e-3,
+                           bp=blocks["reuse_block_patches"])
+    return fn, [(x[i], x_ref[i]) for i in range(n)]
 
 
 def reuse_plan(active: torch.Tensor, cap: int):

@@ -13,6 +13,17 @@ from repro_torch.kernels.runtime import launch_counter
 LAUNCHES = launch_counter("pssa_attention")
 BLOCK_K = 64          # key tile of the CUDA kernel; patches must divide it
 MAX_HEAD_DIM = 160
+# the launch knob the kernel takes (``None``: its launch rule): query rows
+# a block, 16 a warp
+BLOCK_Q_CHOICES = (16, 32, 64)
+
+
+def check_block_q(bq) -> None:
+    """Raise unless ``bq`` is ``None`` or a launch knob the kernel takes;
+    a value is never clamped."""
+    if bq is not None and bq not in BLOCK_Q_CHOICES:
+        raise ValueError(f"pssa_attention: block_q={bq!r}, expected None or "
+                         f"one of {BLOCK_Q_CHOICES}")
 
 
 def _check(name, x, dtype, shape):
@@ -29,11 +40,14 @@ def _check(name, x, dtype, shape):
 
 
 def pssa_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          threshold: float, patch: int):
+                          threshold: float, patch: int, bq: int | None = None):
     """(BH, Tq, d) q x (BH, Tk, d) k/v on the card -> (out, nnz, xor_ones).
 
-    Launches the CUDA kernel or raises; there is no other route.
+    ``bq``, the query rows a block (``check_block_q``; ``None``: the launch
+    rule), moves no bit of the result.  Launches the CUDA kernel or raises;
+    there is no other route.
     """
+    check_block_q(bq)
     bh, tq, d = q.shape
     tk = k.shape[1]
     _check("q", q, torch.float32, (bh, tq, d))
@@ -53,7 +67,7 @@ def pssa_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = lib.launch_pssa_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         nnz.data_ptr(), xor_ones.data_ptr(), bh, tq, tk, tk, d, patch,
-        1.0 / (d ** 0.5), threshold, stream)
+        1.0 / (d ** 0.5), threshold, bq or 0, stream)
     build.check(err, "pssa_attention")
     LAUNCHES.bump()
     return out, nnz, xor_ones

@@ -31,9 +31,11 @@ def add_policy_args(ap):
                          "dispatch table")
     ap.add_argument("--kernels", default="auto",
                     help="kernel policy: 'auto' (fused on the card, "
-                         "reference on the CPU), 'reference', 'fused', or "
-                         "per-op overrides like 'self_attention=fused,"
-                         "cross_attention=fused,ffn=dbsc' (see "
+                         "reference on the CPU), 'reference', 'fused', "
+                         "'autotuned' (fused with the committed autotune "
+                         "table's launch knobs), or per-op overrides like "
+                         "'self_attention=fused,cross_attention=fused,"
+                         "ffn=dbsc,ffn_quant=int8' (see "
                          "repro_torch.kernels.dispatch.KernelPolicy)")
     ap.add_argument("--tips", default="fixed",
                     help="precision policy: 'fixed', 'adaptive', or field "

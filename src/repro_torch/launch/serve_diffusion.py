@@ -16,6 +16,10 @@ raises otherwise).  The policy flags (``--kernels``/``--tips``/
 wiring: one parse into a ``core.policies.ServePolicies`` bundle.
 ``--model`` picks the denoiser family: the BK-SDM UNet (default) or
 DiT-S/2; ``--smoke`` the reduced geometry (full widths without it).
+``--kernels`` selects the per-op kernel routing (``KernelPolicy``):
+``reference``, ``fused``, ``autotuned`` (``fused`` with the launch knobs of
+the committed autotune table, ``kernels.autotune``), or per-op overrides
+like ``self_attention=fused,ffn=dbsc,ffn_quant=int8``.
 
 Micro-batching (the default): prompts are packed into fixed-size
 micro-batches (the tail padded with repeats and masked out of the ledger

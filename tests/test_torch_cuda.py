@@ -10,9 +10,12 @@ on the domain it is fed); attention outputs rtol 1e-4, atol 1e-5 and
 CAS atol 1e-6 (float32 in another summation order); the patch delta and
 the PSXU bitmap bit for bit (a max and a compare need no order), NaN
 where NaN; the SSD scan rtol/atol 2e-4 against the sequential recurrence
-(the JAX package's bound for its chunked kernel against its oracle).
+(the JAX package's bound for its chunked kernel against its oracle);
+every launch-knob candidate bit for bit against the launch rule (no row
+or patch depends on its block) and the int8 route's integers exactly.
 """
 import dataclasses
+import json
 
 import pytest
 import torch
@@ -739,3 +742,229 @@ def test_serve_diffusion_main_replicas_runs_on_the_card_by_default(cuda,
     assert counts["pssa_attention"] == 9 * steps
     assert counts["cross_attention_tips"] == 9 * steps
     assert counts.get("bitslice_matmul", 0) == 0
+
+
+# (spec, launches per step): autotuned is fused() on the float FFN; the
+# int8 spec overrides the reference preset, so no kernel launches and its
+# DBSC products go to torch._int_mm
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("spec,per_step", [
+    ("autotuned", {"pssa_attention": 9, "cross_attention_tips": 9,
+                   "bitslice_matmul": 0}),
+    ("ffn=dbsc,ffn_quant=int8", {"pssa_attention": 0,
+                                 "cross_attention_tips": 0,
+                                 "bitslice_matmul": 0})])
+def test_serve_diffusion_main_compiled_specs_run_on_the_card(cuda, capsys,
+                                                             monkeypatch,
+                                                             spec,
+                                                             per_step):
+    import json
+
+    from repro_torch.launch import serve_diffusion
+    int8 = []
+    real = torch._int_mm
+    monkeypatch.setattr(torch, "_int_mm",
+                        lambda a, b: int8.append(a.device) or real(a, b))
+    runtime.reset_launch_counts()
+    serve_diffusion.main(["--smoke", "--continuous", "--slots", "2",
+                          "--requests", "2", "--steps", "2", "--ledger",
+                          "--kernels", spec])
+    head, _, body = capsys.readouterr().out.partition("\n")
+    assert "device cuda" in head
+    m = json.loads(body)
+    assert m["requests"] == 2
+    assert m["kernel_policy"]["backend"] == "cuda"
+    assert m["kernel_policy"]["tuned"] == (spec == "autotuned")
+    assert m["kernel_policy"]["ffn_quant"] == (
+        "model" if spec == "autotuned" else "int8")
+    steps = m["engine_steps"] + 1
+    counts = runtime.launch_counts()
+    assert {k: counts.get(k, 0) for k in per_step} == {
+        k: v * steps for k, v in per_step.items()}
+    # 9 FFNs a step, 2 DBSC matmuls each, 2 products each
+    assert len(int8) == (0 if spec == "autotuned" else 36 * steps)
+    assert all(d.type == "cuda" for d in int8)
+
+
+# ---------------------------------------------------------------------------
+# The launch knobs (``kernels.autotune``) and the int8 route
+# ---------------------------------------------------------------------------
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _hold_candidates(op, geom, run):
+    """Every candidate of ``op`` at ``geom`` gives the launch rule's bits
+    (outputs and counters)."""
+    from repro_torch.kernels import autotune
+    want = run({name: None for name in autotune.OP_KNOBS[op]})
+    cands = autotune._op_module(op).autotune_candidates(geom)
+    assert len(cands) >= 1
+    for blocks in cands:
+        got = run(blocks)
+        assert all(_same_bits(a, b) for a, b in zip(got, want)), blocks
+
+
+# the main path's shapes: BK-SDM at res 64 / 32 / 16 (batch 1 under
+# guidance: 2 rows x 8 heads), DiT-S/2 after its CFG tiling, a ragged Tq
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,h,t,d,patch", [
+    (2, 8, 4096, 40, 64), (2, 8, 1024, 80, 32), (2, 8, 256, 160, 16),
+    (2, 6, 256, 64, 16), (1, 2, 100, 40, 4)])
+def test_pssa_knob_candidates_equal_the_launch_rule(cuda, b, h, t, d,
+                                                    patch):
+    from repro_torch.kernels.pssa_attention.ops import pssa_attention
+    g = torch.Generator(device=cuda).manual_seed(t + d)
+    q, k, v = (torch.randn((b, h, t, d), generator=g, device=cuda)
+               for _ in range(3))
+    _hold_candidates("self_attention", (b, h, t, d, patch), lambda blk: (
+        pssa_attention(q, k, v, THR, patch, bq=blk["attn_block_q"])))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,h,tq,d", [
+    (2, 8, 4096, 40), (2, 8, 1024, 80), (2, 8, 256, 160), (2, 6, 256, 64),
+    (1, 3, 100, 40)])
+def test_cross_knob_candidates_equal_the_launch_rule(cuda, b, h, tq, d):
+    from repro_torch.kernels.cross_attention_tips.ops import (
+        cross_attention_cas)
+    g = torch.Generator(device=cuda).manual_seed(tq + d)
+    q = torch.randn((b, h, tq, d), generator=g, device=cuda)
+    k, v = (torch.randn((b, h, 77, d), generator=g, device=cuda)
+            for _ in range(2))
+    _hold_candidates("cross_attention", (b, h, tq, d, 77), lambda blk: (
+        cross_attention_cas(q, k, v, bq=blk["cross_block_q"])))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rows,tk,patch", [(4096, 4096, 64), (70, 256, 16),
+                                           (33, 64, 64)])
+def test_bitmap_knob_candidates_equal_the_launch_rule(cuda, rows, tk, patch):
+    from repro_torch.kernels.patch_bitmap.ops import patch_bitmap
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    sas = torch.rand((rows, tk), generator=g, device=cuda) * 2 * THR
+    _hold_candidates("bitmap", (rows, tk, patch), lambda blk: (
+        patch_bitmap(sas, patch, THR, br=blk["bitmap_block_rows"])))
+
+
+# (B, T, C, patch): the UNet's res 64 / 16 rows (W = patch * C = 20480),
+# DiT's (W = 6144), a W that is no multiple of 4 (scalar loads)
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,t,c,patch", [
+    (2, 4096, 320, 64), (2, 256, 1280, 16), (2, 256, 384, 16),
+    (2, 63, 143, 7)])
+def test_reuse_knob_candidates_equal_the_launch_rule(cuda, b, t, c, patch):
+    from repro_torch.kernels.patch_reuse.ops import patch_delta
+    g = torch.Generator(device=cuda).manual_seed(t + c)
+    x = torch.randn((b, t, c), generator=g, device=cuda)
+    x_ref = x + 1e-3 * torch.randn((b, t, c), generator=g, device=cuda)
+    _hold_candidates("reuse", (b, t, c, patch), lambda blk: (
+        patch_delta(x, x_ref, patch, 1e-3,
+                    bp=blk["reuse_block_patches"])))
+
+
+@pytest.mark.requires_cuda
+def test_an_illegal_knob_raises(cuda):
+    """In the wrappers (never clamped), and in the C entry points, which
+    refuse what the wrappers would have caught."""
+    from repro_torch.kernels import build
+    q = torch.zeros((2, 64, 96), device=cuda)
+    kv = torch.zeros((2, 77, 96), device=cuda)
+    for call in (
+            lambda: pssa_attention_kernel(q, q, q, THR, 16, bq=128),
+            lambda: pssa_attention_kernel(q, q, q, THR, 16, bq=0),
+            lambda: cross_attention_tips_kernel(q, kv, kv, bq=32),
+            lambda: patch_bitmap_kernel(torch.zeros((64, 64), device=cuda),
+                                        16, THR, br=64),
+            lambda: patch_delta_kernel(q, q, bp=3)):
+        with pytest.raises(ValueError, match="expected None or one of"):
+            call()
+    out = torch.zeros((2, 64), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = build.library().launch_patch_delta(
+        q.data_ptr(), q.data_ptr(), out.data_ptr(), 128, 96, 1, 3, stream)
+    assert err != 0
+
+
+# the six FFN products of BK-SDM at batch 1 under guidance (res 64 / 32 /
+# 16, ff_geglu then ff_out)
+FFN_SHAPES = [(8192, 320, 2560), (8192, 1280, 320), (2048, 640, 5120),
+              (2048, 2560, 640), (512, 1280, 10240), (512, 5120, 1280)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("m,k,n", FFN_SHAPES)
+def test_int8_route_equals_the_bitslice_kernel(cuda, m, k, n):
+    from repro_torch.kernels.bitslice_matmul.ref import bitslice_matmul_int8
+    hi, lo, w, prec = _bitslice_inputs(cuda, m, k, n, "random", "mixed")
+    runtime.reset_launch_counts()
+    got = bitslice_matmul_int8(hi, lo, w, prec)
+    assert runtime.launch_counts().get("bitslice_matmul", 0) == 0
+    assert torch.equal(got, bitslice_matmul_kernel(hi, lo, w, prec))
+
+
+@pytest.mark.requires_cuda
+def test_tune_smoke_geoms_writes_a_valid_table(cuda, tmp_path):
+    from repro_torch.kernels import autotune
+    table = autotune.tune(autotune.SMOKE_GEOMS, reps=1, verbose=False)
+    path = autotune.save_table(table, str(tmp_path / "t.json"))
+    autotune.clear_cache()
+    loaded = autotune.load_table(path)
+    assert len(loaded["entries"]) == sum(
+        len(g) for g in autotune.SMOKE_GEOMS.values())
+    for key, results in loaded["sweep"].items():
+        assert key.startswith("cuda/")
+        assert all(r["ms"] > 0 for r in results)
+    assert loaded["generated_on"]["backend"] == "cuda"
+    assert loaded["generated_on"]["device"]
+
+
+@pytest.mark.requires_cuda
+def test_smoke_autotuned_and_int8_bit_equal_on_card(cuda, tmp_path,
+                                                    monkeypatch):
+    """A table of the smallest launch of every geometry the smoke engine
+    looks up (recorded from the dispatch layer): ``autotuned`` + DBSC gives
+    the ``fused`` + DBSC image bit for bit and launches as many kernels;
+    ``ffn_quant=int8`` gives it too, with no ``bitslice_matmul`` launch."""
+    from repro_torch.kernels import autotune
+    seen = set()
+    real = autotune.lookup
+
+    def spy(op, geom, **kw):
+        seen.add((op, tuple(geom)))
+        return real(op, geom, **kw)
+    monkeypatch.setattr(autotune, "lookup", spy)
+    slice_pol = dataclasses.replace(KernelPolicy.fused(), ffn="dbsc")
+    tuned_pol = dataclasses.replace(slice_pol, tuned=True)
+    base = DiffusionEngine(_guided_smoke(slice_pol))
+    params = {"text": base.text_params, "unet": base.unet_params,
+              "vae": base.vae_params}
+    toks = torch.zeros((1, base.cfg.text.max_len), dtype=torch.int32,
+                       device=cuda)
+    lat = base.init_latents(1, torch.Generator(device=cuda).manual_seed(1))
+
+    def run(pol):
+        runtime.reset_launch_counts()
+        out = DiffusionEngine(_guided_smoke(pol), params=params).generate(
+            toks, uncond_tokens=torch.zeros_like(toks), latents=lat.clone())
+        return out.images, runtime.launch_counts()
+    img, counts = run(slice_pol)
+    run(tuned_pol)                                 # records the geometries
+    assert {op for op, _ in seen} == {"self_attention", "cross_attention"}
+    entries = {}
+    for op, geom in seen:
+        cands = autotune._op_module(op).autotune_candidates(geom)
+        entries[autotune.make_key("cuda", op, geom)] = cands[0]
+    path = tmp_path / "table.json"
+    path.write_text(json.dumps({"version": autotune.AUTOTUNE_VERSION,
+                                "entries": entries}))
+    monkeypatch.setattr(autotune, "DEFAULT_TABLE_PATH", str(path))
+    autotune.clear_cache()
+    img_t, counts_t = run(tuned_pol)
+    assert torch.equal(img_t, img) and counts_t == counts
+    img_8, counts_8 = run(dataclasses.replace(slice_pol, ffn_quant="int8"))
+    assert torch.equal(img_8, img)
+    assert counts_8.get("bitslice_matmul", 0) == 0
+    autotune.clear_cache()

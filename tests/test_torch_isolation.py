@@ -34,7 +34,8 @@ print("NEW", sorted(n for n in sys.modules
                                      "repro_torch.launch.",
                                      "repro_torch.diffusion.denoiser",
                                      "repro_torch.diffusion.dit",
-                                     "repro_torch.configs.dit_s"))))
+                                     "repro_torch.configs.dit_s",
+                                     "repro_torch.kernels.autotune"))))
 print("BAD", bad)
 """
 
@@ -56,7 +57,8 @@ def test_port_imports_neither_jax_nor_repro():
                 "models.ssm", "models.transformer", "launch.serve",
                 "diffusion.denoiser", "diffusion.dit", "configs.dit_s",
                 "core.policies", "launch.cli", "launch.scheduler",
-                "launch.serve_diffusion", "launch.router"):
+                "launch.serve_diffusion", "launch.router",
+                "kernels.autotune"):
         assert f"repro_torch.{mod}" in new
 
 
@@ -75,6 +77,35 @@ def test_no_jax_or_repro_import_statements(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_autotune_reads_its_own_table_only():
+    """The port's autotuner reads and writes its own table beside it,
+    never the JAX package's (whose entries are the Pallas interpreter's),
+    and the tuned dispatch path leaves no JAX module loaded."""
+    from repro_torch.kernels import autotune
+    table = pathlib.Path(autotune.DEFAULT_TABLE_PATH).resolve()
+    assert table.parent == PORT / "kernels"
+    assert table.name == "autotune_table.json"
+    tree = ast.parse((PORT / "kernels" / "autotune.py").read_text())
+    doc = ast.get_docstring(tree, clean=False)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and node.value != doc:
+            assert not node.value.startswith("repro."), node.value
+            assert "repro/" not in node.value, node.value
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import sys\n"
+            "from repro_torch.kernels import autotune, dispatch\n"
+            "autotune.load_table()\n"
+            "dispatch._blocks(dispatch.KernelPolicy.autotuned(), "
+            "'self_attention', (2, 8, 4096, 40, 64), 'cuda')\n"
+            "print(sorted(n for n in sys.modules if n.split('.')[0] in "
+            "('jax', 'repro')))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_default_device_is_the_card_and_raises_without_one():

@@ -69,6 +69,11 @@ KERNEL_SPECS = ["reference", "fused", "auto", "self_attention=fused",
                 "self_attention=fused,cross_attention=fused,ffn=dbsc",
                 "bitmap=kernel,reuse=kernel", " fused ",
                 "ffn=dbsc,ffn_quant=model"]
+# the compiled-path policy: the autotuned preset, tuned= and the int8 route
+COMPILED_SPECS = ["autotuned", "tuned=true",
+                  "self_attention=fused,tuned=false",
+                  "ffn=dbsc,ffn_quant=int8",
+                  "ffn=dbsc,ffn_quant=int8,tuned=true"]
 
 
 @pytest.mark.parametrize("spec", KERNEL_SPECS)
@@ -76,6 +81,16 @@ def test_kernel_policy_parse_matches_jax(spec):
     j, t = JKP.parse(spec), KernelPolicy.parse(spec, device="cpu")
     assert {op: getattr(t, op) for op in OPS} == \
         {op: getattr(j, op) for op in OPS}
+    assert t.describe("cpu") == _jax_view(j.describe())
+
+
+@pytest.mark.parametrize("spec", COMPILED_SPECS)
+def test_kernel_policy_compiled_specs_match_jax(spec):
+    """``autotuned``, ``tuned=`` and ``ffn_quant=int8`` parse as the JAX
+    package parses them."""
+    j, t = JKP.parse(spec), KernelPolicy.parse(spec, device="cpu")
+    assert {op: getattr(t, op) for op in (*OPS, "tuned", "ffn_quant")} == \
+        {op: getattr(j, op) for op in (*OPS, "tuned", "ffn_quant")}
     assert t.describe("cpu") == _jax_view(j.describe())
 
 
@@ -90,14 +105,12 @@ def test_kernel_policy_bad_specs_raise_in_both(spec, match):
 
 
 @pytest.mark.parametrize("spec,match", [
-    ("autotuned", "Queue 1 item 3"), ("tuned=true", "Queue 1 item 3"),
     ("fused,tuned=false", "preset"),
-    ("self_attention=fused,tuned=false", "Queue 1 item 3"),
-    ("ffn=dbsc,ffn_quant=int8", "Queue 1 item 5"),
     ("interpret=true", "interpreter"), ("interpret=auto", "interpreter")])
 def test_kernel_policy_refuses_what_the_port_lacks(spec, match):
-    """Specs the JAX package takes but the port has no route for raise
-    with their ROADMAP item; none maps silently onto another preset."""
+    """A preset with overrides raises as in the JAX package, and
+    ``interpret=`` (the kernels are CUDA and have no interpreter) raises;
+    no spec maps silently onto another preset."""
     with pytest.raises(ValueError, match=match):
         KernelPolicy.parse(spec, device="cpu")
 
