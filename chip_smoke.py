@@ -28,10 +28,10 @@ no result line):
                  output alone; the op on the UNet's head-split views
                  runs no copy and equals the 3-D call;
                  the SSD scan at the serve prompt, the CLI's default
-                 prompt, a ragged T, an odd T (chunk 1) and a large dt,
-                 its bound on the
-                 3xTF32 basis (C B^T once per batch row) beside the fp32
-                 one and the per-head count, the replaced kernel's
+                 prompt, a ragged T, an odd T (chunk 1), a large dt and
+                 hymba-1.5b's prefill (state 16, 50 heads), its bound on
+                 the 3xTF32 basis (C B^T once per batch row) beside the
+                 fp32 one and the per-head count, the replaced kernel's
                  time and the chunked torch route's;
 4. slice       — full-width BK-SDM-Tiny text-to-image, 25 DDIM steps at
                  guidance 7.5, through ``DiffusionEngine.generate`` on the
@@ -128,6 +128,17 @@ no result line):
                  decode step against prefill(T + 1) in float32 and bf16,
                  with a zeroed-state control; profiles of prefill and
                  decode.
+16. lm         — llama3-8b (dense), qwen2-moe-a2.7b (moe) and hymba-1.5b
+                 (hybrid) at their published geometry, one at a time,
+                 through ``launch.serve.serve``: batch 4, a 2048-token
+                 prompt (hymba's rings wrap), 32 greedy tokens; hymba's
+                 prefill on ``ssd_scan`` (32 launches, none in decode) and
+                 each of its mixers on the kernel against the chunked
+                 route; the first token is prefill's argmax; the int8 KV
+                 cache against the bf16 one (dense, moe); prefill(T) + one
+                 decode step against prefill(T + 1) with zeroed-KV and
+                 (hymba) zeroed-SSM-state controls; profiles of prefill
+                 and 16 decode steps.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
@@ -260,6 +271,52 @@ DEEP_F32_RTOL = 1e-4
 # must land past the limit, so the limit can tell a lost state.
 CARRY_F32_RTOL = 1e-4
 CARRY_RTOL = 1e-1
+# lm: llama3-8b, qwen2-moe-a2.7b and hymba-1.5b at their published
+# geometry (random weights from a seed): batch 4, a 2048-token prompt
+# (past hymba's 1024-token window, so its ring buffers wrap), 32 greedy
+# tokens; profiles of prefill and of 16 decode steps
+LM_BATCH, LM_PROMPT, LM_NEW, LM_PROFILE_STEPS = 4, 2048, 32, 16
+LM_GEOMETRY = {
+    "llama3-8b": dict(
+        family="dense", num_layers=32, d_model=4096, num_heads=32,
+        num_kv_heads=8, head_dim=128, d_ff=14336, vocab_size=128256,
+        rope_theta=500000.0, dtype="bfloat16"),
+    "qwen2-moe-a2.7b": dict(
+        family="moe", num_layers=24, d_model=2048, num_heads=16,
+        num_kv_heads=16, head_dim=128, num_experts=60, num_shared_experts=4,
+        top_k=4, moe_d_ff=1408, vocab_size=151936, dtype="bfloat16"),
+    "hymba-1.5b": dict(
+        family="hybrid", num_layers=32, d_model=1600, num_heads=25,
+        num_kv_heads=5, head_dim=64, d_ff=5504, vocab_size=32001,
+        ssm_state=16, ssm_heads=50, ssm_head_dim=64, sliding_window=1024,
+        dtype="bfloat16"),
+}
+# prefill(T) + one decode_step against prefill(T + 1) with PSSA and TIPS
+# off (TIPS fake-quantises on a per-sample scale, which a 1-token decode
+# and a T-token prefill do not share), relative to the largest logit,
+# batch 4.  llama3-8b and qwen2-moe-a2.7b in bf16, as served: the decode
+# path rounds its GEMMs and attention sums at other points than the
+# longer prefill, and that compounds over the layers; the bound of the
+# mamba2 bf16 carry.  qwen2 routes every token to all 60 experts for this
+# check (top_k = num_experts, capacity factor 1: no choice, no drop): at
+# top-4 that rounding swaps a router's 4th and 5th gates now and then,
+# and one expert swapped in one layer moves the logits by O(0.1) (the
+# top-4 bf16 carry read 2.2e-1 on the H100 against 1.3 for its zeroed-KV
+# control; float32 does not help, as decode_attention rounds q and the
+# probabilities to bf16 whatever the model dtype: 2.3e-3 at smoke widths
+# on the CPU).  hymba-1.5b in float32 (its bf16 weights cast in place):
+# with random weights its SSM state decays within a few steps, so a
+# zeroed state moves the logits by only 9e-2 (2 layers) to 1.7e-1 (8
+# layers) at smoke widths on the CPU, beside a bf16 carry of 1.1e-2 to
+# 2.0e-2 there (float32: 5e-7 to 8e-7).  Each control (the same step from
+# a zeroed KV cache, and for hymba from a zeroed SSM state) must land
+# past its bound.
+LM_CARRY_RTOL = 1e-1
+LM_CARRY_F32_RTOL = 1e-3
+# One decode step's logits from the int8 KV cache against the same step
+# from the bf16 cache (the same prefill): the int8 grid (0.05) rounds
+# keys and values by up to 0.025.  A wrong scale or layout reads O(1).
+LM_INT8_RTOL = 0.2
 
 REPLACES = {
     "pssa_attention":
@@ -850,10 +907,11 @@ def ssd_scan_rows(torch, g) -> dict:
     """The SSD scan kernel against its plain version (the sequential
     recurrence, on the TPU kernel's folded contract: B and C copied per
     head) at the serve prompt, the CLI's default prompt, a ragged T, an
-    odd T (chunk 1; the kernel still runs 128-step tiles) and a large dt
-    whose |dA| sums past 88 inside a chunk.  The kernel reads the
-    model's per-batch B and C in place (``heads=24``), as the main path
-    gives them.  Inputs as in tests/test_ssd_kernel.py.
+    odd T (chunk 1; the kernel still runs 128-step tiles), a large dt
+    whose |dA| sums past 88 inside a chunk, and hymba-1.5b's prefill
+    (state 16, 50 heads: 16 state columns in the vectorised loads).  The
+    kernel reads the model's per-batch B and C in place (``heads``), as
+    the main path gives them.  Inputs as in tests/test_ssd_kernel.py.
 
     Beside each row: the bound on two counts of the work (C B^T once per
     batch row, which all heads share, or once per head as the replaced
@@ -869,14 +927,16 @@ def ssd_scan_rows(torch, g) -> dict:
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.models.ssm import ssd_scan as chunked_route
     rows = {}
-    p, n, heads = 64, 128, 24
-    # (label, batch, T, dt scale, main)
-    for label, b, t, dts, main in [
-            ("serve prefill T=4096", 4, 4096, 1.0, True),
-            ("CLI default prompt T=32", 4, 32, 1.0, False),
-            ("ragged T=4000", 4, 4000, 1.0, False),
-            ("odd prompt T=4095", 4, 4095, 1.0, False),
-            ("large dt T=512", 1, 512, 12.0, False)]:
+    p = 64
+    # (label, batch, T, state n, heads, dt scale, main): mamba2-130m's
+    # serve shapes, then hymba-1.5b's prefill (state 16, 50 heads)
+    for label, b, t, n, heads, dts, main in [
+            ("serve prefill T=4096", 4, 4096, 128, 24, 1.0, True),
+            ("CLI default prompt T=32", 4, 32, 128, 24, 1.0, False),
+            ("ragged T=4000", 4, 4000, 128, 24, 1.0, False),
+            ("odd prompt T=4095", 4, 4095, 128, 24, 1.0, False),
+            ("large dt T=512", 1, 512, 128, 24, 12.0, False),
+            ("hymba prefill T=2048", 4, LM_PROMPT, 16, 50, 1.0, False)]:
         bh, chunk = b * heads, pick_chunk(t, 128)
         set_bytes = 4 * (bh * t * p + bh * t + 2 * b * t * n)
         sets = []
@@ -963,18 +1023,26 @@ def _tree(fn, tree):
 
 def _route_pair_per_layer(torch, cfg, params, prompts) -> list:
     """Each layer's mixer, kernel route against chunked route, on the same
-    input: the kernel route's own activations at that layer."""
+    input: the kernel route's own activations at that layer (an ssm
+    layer is its mixer; a hybrid layer runs its whole block on)."""
     from repro_torch.models import layers as L
     from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as T
     chunked = cfg.scaled(use_ssd_kernel=False)
     x = L.embed(prompts, params["embed"])
+    b, t = prompts.shape
+    positions = torch.arange(t, device=x.device)[None].expand(b, t)
     pairs = []
     for i in range(cfg.num_layers):
         lp = _tree(lambda a: a[i], params["layers"])
         xa = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         hk = SSM.mamba_mixer(xa, lp["ssm"], cfg)
         pairs.append(_rel(hk, SSM.mamba_mixer(xa, lp["ssm"], chunked)))
-        x = x + hk
+        if cfg.family == "ssm":
+            x = x + hk
+        else:
+            x, _ = T._block_train(x, lp, cfg, positions,
+                                  is_global=T._is_global_layer(cfg, i))
     return pairs
 
 
@@ -1118,6 +1186,227 @@ def serve_phase(torch):
     profile_breakdown(torch, prefill_run, "serve prefill")
     profile_breakdown(torch, decode_run, "serve decode (16 steps)")
     return counts
+
+
+def _hold_geometry(cfg, name) -> None:
+    want = LM_GEOMETRY[name]
+    got = {k: getattr(cfg, k) for k in want}
+    require(got == want, f"{name}: not the published geometry: {got}")
+
+
+def _zero_kv(torch, cfg, cache):
+    """A copy of a decode cache with every key and value zeroed (the
+    hybrid SSM entries kept)."""
+    if cfg.family == "hybrid":
+        return [dict(c, k=torch.zeros_like(c["k"]),
+                     v=torch.zeros_like(c["v"])) for c in cache]
+    return {k: torch.zeros_like(a) for k, a in cache.items()}
+
+
+def _zero_state(torch, cache):
+    """A copy of a hybrid decode cache with every SSM state zeroed."""
+    return [dict(c, k=c["k"].clone(), v=c["v"].clone(),
+                 ssm=dict(c["ssm"], state=torch.zeros_like(c["ssm"]["state"])))
+            for c in cache]
+
+
+def _float_(tree) -> None:
+    """Cast every leaf to float32 in place, one at a time, so that the
+    peak is the float32 model and one bf16 leaf."""
+    for k in list(tree):
+        if isinstance(tree[k], dict):
+            _float_(tree[k])
+        else:
+            tree[k] = tree[k].float()
+
+
+def _lm_carry(torch, cfg, params, prompts):
+    """prefill(T) + decode_step against prefill(T + 1), with the
+    controls; PSSA and TIPS off, and for moe every token routed to every
+    expert at a capacity at which none drops (prefill routes B (T + 1)
+    tokens and decode B, which drop differently at the configured
+    factor; see LM_CARRY_RTOL for the routing).  Returns {label: relative
+    distance}."""
+    from repro_torch.models import transformer as T
+    c = cfg.scaled(tips=False, pssa=False)
+    if c.family == "moe":
+        c = c.scaled(top_k=c.num_experts, moe_capacity_factor=1.0)
+    t = prompts.shape[1]
+    logits, pcache = T.prefill(params, c, tokens=prompts)
+    nxt = logits[:, -1].argmax(dim=-1)[:, None]
+    cache = T.decode_cache_from_prefill(c, pcache, t + 1)
+    del pcache
+    controls = {"zeroed KV (control)": _zero_kv(torch, c, cache)}
+    if c.family == "hybrid":
+        controls["zeroed SSM state (control)"] = _zero_state(torch, cache)
+    # controls first: decode_step writes the new key and value in place
+    out = {label: T.decode_step(params, cc, nxt, t, c)[0]
+           for label, cc in controls.items()}
+    del controls
+    step, cache = T.decode_step(params, cache, nxt, t, c)
+    del cache
+    full, _ = T.prefill(params, c, tokens=torch.cat([prompts, nxt], dim=1))
+    got = {"carry": _rel(step, full)}
+    got.update({label: _rel(l0, full) for label, l0 in out.items()})
+    return got
+
+
+@phase("lm")
+def lm_phase(torch):
+    """llama3-8b (dense), qwen2-moe-a2.7b (moe) and hymba-1.5b (hybrid,
+    prefill's scan on ``ssd_scan``) at their published geometry through
+    the port's serve entry point, one model on the card at a time."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+
+    for seed, name in enumerate(LM_GEOMETRY):
+        t_model = time.perf_counter()
+        cfg = get_arch(name)
+        if cfg.family == "hybrid":
+            cfg = cfg.scaled(use_ssd_kernel=True)
+        _hold_geometry(cfg, name)
+        t0 = time.perf_counter()
+        params = T.init_params(
+            torch.Generator(device="cuda").manual_seed(seed), cfg)
+        torch.cuda.synchronize()
+        n = sum(a.numel() for a in _leaves(params))
+        print(f"{name}: {n / 1e9:.3f} B parameters, "
+              f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card, "
+              f"initialised in {time.perf_counter() - t0:.2f} s")
+        prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                                generator=torch.Generator(
+                                    device="cuda").manual_seed(100 + seed),
+                                device="cuda")
+        serve(cfg, params, prompts[:, :128], 2)            # warm-up
+        runtime.reset_launch_counts()
+        tokens, tm = serve(cfg, params, prompts, LM_NEW)
+        counts = runtime.launch_counts()
+        want = cfg.num_layers if cfg.family == "hybrid" else 0
+        print(f"  launches {json.dumps(tm['launches'])}")
+        require(tm["launches"]["prefill"].get("ssd_scan", 0) == want
+                and counts.get("ssd_scan", 0) == want,
+                f"{name}: ssd_scan launches in prefill "
+                f"{tm['launches']['prefill']} != {want}")
+        require(tm["launches"]["decode"].get("ssd_scan", 0) == 0,
+                f"{name}: ssd_scan launched in decode")
+        require(tuple(tokens.shape) == (LM_BATCH, LM_NEW)
+                and int(tokens.min()) >= 0
+                and int(tokens.max()) < cfg.vocab_size,
+                f"{name}: tokens {tuple(tokens.shape)} out of shape or "
+                f"vocabulary")
+        steps = tm["decode_steps"]
+        print(f"  serve: prefill s {tm['prefill_s']:.4f} "
+              f"({LM_BATCH * LM_PROMPT / tm['prefill_s']:.0f} prompt "
+              f"tokens/s); decode ms/token "
+              f"{tm['decode_s'] / steps * 1e3:.3f} (one step of the batch "
+              f"of {LM_BATCH}), decode tokens/s "
+              f"{LM_BATCH * steps / tm['decode_s']:.1f}; {steps} steps")
+
+        with torch.inference_mode():
+            logits, pcache = T.prefill(params, cfg, tokens=prompts)
+            require(bool(torch.isfinite(logits).all()),
+                    f"{name}: non-finite prefill logits")
+            require(torch.equal(logits[:, -1].argmax(dim=-1), tokens[:, 0]),
+                    f"{name}: serve's first token is not prefill's argmax")
+            nxt = tokens[:, :1]
+            cache = T.decode_cache_from_prefill(cfg, pcache, LM_PROMPT + 1)
+            ld, _ = T.decode_step(params, cache, nxt, LM_PROMPT, cfg)
+            require(bool(torch.isfinite(ld).all()),
+                    f"{name}: non-finite decode logits")
+            if cfg.family in ("dense", "moe"):
+                c8 = cfg.scaled(kv_cache_dtype="int8")
+                cache8 = T.decode_cache_from_prefill(c8, pcache,
+                                                     LM_PROMPT + 1)
+                require(cache8["k"].dtype == torch.int8,
+                        f"{name}: the int8 cache is {cache8['k'].dtype}")
+                ld8, _ = T.decode_step(params, cache8, nxt, LM_PROMPT, c8)
+                del cache8
+                int8 = _rel(ld8, ld)
+                tokens8, tm8 = serve(c8, params, prompts, LM_NEW)
+                require(tuple(tokens8.shape) == (LM_BATCH, LM_NEW)
+                        and int(tokens8.min()) >= 0
+                        and int(tokens8.max()) < cfg.vocab_size,
+                        f"{name}: int8 KV tokens out of the vocabulary")
+                print(f"  --kv-int8: decode step logits against the bf16 "
+                      f"cache's {int8:.3e} (limit {LM_INT8_RTOL}); tokens "
+                      f"equal to the bf16 run's "
+                      f"{float((tokens8 == tokens).float().mean()):.3f}; "
+                      f"prefill s {tm8['prefill_s']:.4f}, decode ms/token "
+                      f"{tm8['decode_s'] / steps * 1e3:.3f}")
+                require(int8 <= LM_INT8_RTOL,
+                        f"{name}: int8 KV logits {int8:.3e} from the bf16 "
+                        f"cache's, past {LM_INT8_RTOL}")
+            del cache, pcache, logits, ld
+            if cfg.family == "hybrid":
+                pairs = _route_pair_per_layer(torch, cfg, params, prompts)
+                worst = max(pairs)
+                print(f"  each layer's mixer, kernel route against the "
+                      f"chunked bf16 route on the same input: worst "
+                      f"{worst:.3e} (layer {pairs.index(worst)}; limit "
+                      f"{ROUTE_RTOL})")
+                require(worst <= ROUTE_RTOL,
+                        f"{name}: a layer's route pair {worst:.3e} > "
+                        f"{ROUTE_RTOL}")
+
+        def prefill_run():
+            return serve(cfg, params, prompts, 1)[1]["prefill_s"]
+
+        with torch.inference_mode():
+            lg, pc = T.prefill(params, cfg, tokens=prompts)
+            dcache = T.decode_cache_from_prefill(
+                cfg, pc, LM_PROMPT + LM_PROFILE_STEPS)
+            tok0 = lg[:, -1].argmax(dim=-1)[:, None]
+            del lg, pc
+
+        def decode_run():
+            c, tok = dcache, tok0
+            with torch.inference_mode():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(LM_PROFILE_STEPS):
+                    lg, c = T.decode_step(params, c, tok, LM_PROMPT + i, cfg)
+                    tok = lg[:, -1].argmax(dim=-1)[:, None]
+                torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        t_prof = time.perf_counter()
+        profile_breakdown(torch, prefill_run, f"{name} prefill")
+        profile_breakdown(torch, decode_run,
+                          f"{name} decode ({LM_PROFILE_STEPS} steps)")
+        print(f"  profiles in {time.perf_counter() - t_prof:.2f} s")
+        del dcache, tok0
+        # the carry last: hymba's float32 casts the weights in place
+        f32 = cfg.family == "hybrid"
+        if f32:
+            _float_(params)
+            cfg = cfg.scaled(dtype="float32")
+        with torch.inference_mode():
+            carry = _lm_carry(torch, cfg, params, prompts)
+        bound = LM_CARRY_F32_RTOL if f32 else LM_CARRY_RTOL
+        print(f"  prefill(T) + decode_step against prefill(T+1), "
+              f"{'float32' if f32 else 'bf16'}, PSSA and TIPS off"
+              + (", all experts, no drop" if cfg.family == "moe"
+                 else "") + ": "
+              + "; ".join(f"{k} {v:.3e}" for k, v in carry.items())
+              + f" (limit {bound}; controls must exceed it)")
+        require(carry.pop("carry") <= bound, f"{name}: carry past {bound}")
+        require(all(v > bound for v in carry.values()),
+                f"{name}: a control within {bound}: {carry}")
+        print(f"  peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB; "
+              f"{name} in {time.perf_counter() - t_model:.2f} s")
+        del params, prompts, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
 
 
 # ---------------------------------------------------------------------------
@@ -3494,10 +3783,12 @@ def profile_breakdown(torch, run, tag: str, top: int = 15):
     wall seconds), under torch.profiler; this run's counts and wall time
     are not the ones reported elsewhere.  "busy" is the union of the
     device intervals on the timeline, so nested or overlapping events
-    count once; "summed" adds self device time over ``key_averages()``."""
+    count once; "summed" adds self device time over ``key_averages()``.
+    Only device activity is recorded: the host's op events are not read,
+    and parsing them took most of a minute per decode profile of the lm
+    phase."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall_ms = run() * 1e3
     rows = []
     for e in prof.key_averages():
@@ -4064,6 +4355,7 @@ def main() -> int:
         edit_phase(torch, eng, dense_s)
         parity_phase(torch, eng)
         serve_counts = serve_phase(torch)
+        lm_phase(torch)
     except Exception as exc:                      # report, then fail
         import traceback
         traceback.print_exc()

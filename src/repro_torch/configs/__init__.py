@@ -1,24 +1,32 @@
-"""Config registry of the language-model architectures the port serves.
+"""Config registry of the language-model architectures the port serves
+(port of ``repro.configs``): the JAX package's ten, in its order.
 
-Only ``mamba2-130m`` so far; the JAX package's other architectures wait
-for the dense, moe and hybrid families (ROADMAP.md, Queue 1 item 7).
-``configs.bk_sdm`` (the diffusion workload) is imported by name, not here:
-it pulls in the diffusion stack.
+``configs.bk_sdm`` and ``configs.dit_s`` (the diffusion workloads) are
+imported by name, not here: they pull in the diffusion stack.
 """
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES, ArchConfig, ShapeConfig)
 
-ARCH_NAMES = ["mamba2-130m"]
+ARCH_NAMES = [
+    "mamba2-130m",
+    "qwen2-moe-a2.7b",
+    "llama4-scout-17b-a16e",
+    "yi-34b",
+    "chatglm3-6b",
+    "llama3-8b",
+    "yi-9b",
+    "internvl2-26b",
+    "musicgen-large",
+    "hymba-1.5b",
+]
 
 
 def get_arch(name: str) -> ArchConfig:
     if name not in ARCH_NAMES:
-        raise ValueError(
-            f"repro_torch serves {ARCH_NAMES}, not {name!r}; the other "
-            f"architectures of the JAX package are still to be ported "
-            f"(ROADMAP.md, Queue 1 item 7)")
+        raise ValueError(f"unknown architecture {name!r}; the port serves "
+                         f"{ARCH_NAMES}")
     mod = importlib.import_module(
         "repro_torch.configs." + name.replace("-", "_").replace(".", "_"))
     return mod.CONFIG

@@ -2,8 +2,7 @@
 ``repro.configs.base``).
 
 Plain data, field for field and default for default as in the JAX
-package, so that a config file reads the same in both packages.  The port
-serves only the architectures listed in ``repro_torch.configs.ARCH_NAMES``.
+package, so that a config file reads the same in both packages.
 """
 from __future__ import annotations
 

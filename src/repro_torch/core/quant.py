@@ -72,13 +72,15 @@ def bitslice_split(x_int: torch.Tensor):
 def mixed_precision_quantize(x: torch.Tensor, important: torch.Tensor,
                              scale: torch.Tensor | None = None) -> QTensor:
     """TIPS mixed precision: important rows INT12, the rest INT6 on the
-    same scale grid (the low 6 bits of the INT12 code dropped)."""
+    same scale grid (the low 6 bits of the INT12 code dropped).  ``x /
+    scale`` is rounded to their common dtype before it is rounded to an
+    integer, as in the JAX package (bfloat16 for a bfloat16 pair)."""
     if scale is None:
         q = quantize_act(x, ACT_BITS_HIGH)
     else:
-        scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+        scale = torch.as_tensor(scale, device=x.device)
         q = QTensor(torch.clamp(torch.round(x / scale), 0, ACT_HIGH_MAX)
-                    .to(torch.int32), scale)
+                    .to(torch.int32), scale.to(torch.float32))
     low = torch.bitwise_left_shift(torch.bitwise_right_shift(q.values, 6), 6)
     vals = torch.where(important[..., None], q.values, low)
     return QTensor(vals, q.scale)

@@ -39,12 +39,21 @@ def apply_precision_mask(x: torch.Tensor, important: torch.Tensor,
     (reduced over every non-batch axis), so a fused cond+uncond batch gives
     the same rows as two separate calls.
     """
-    active = torch.as_tensor(active, device=x.device)
-    imp = torch.logical_or(important, torch.logical_not(active))
+    if isinstance(active, bool):
+        # no host-to-device copy (it would hold the host until the card
+        # caught up, once per FFN)
+        imp = important if active else torch.ones_like(important)
+    else:
+        active = torch.as_tensor(active, device=x.device)
+        imp = torch.logical_or(important, torch.logical_not(active))
     axes = tuple(range(1, x.ndim))
     amax = torch.clamp_min(x, 0.0).amax(dim=axes, keepdim=True)
-    # the jitted JAX scale (see core.quant): amax * float32(1 / 4095)
-    scale = torch.clamp_min(amax, 1e-8) * (1.0 / quant.ACT_HIGH_MAX)
+    # the jitted JAX scale (see core.quant): amax / 4095 in x's dtype (a
+    # Python int takes the array's dtype: 4096 in bfloat16), taken as a
+    # float32 product by the inverse and rounded to x's dtype
+    div = torch.tensor(quant.ACT_HIGH_MAX, dtype=x.dtype).item()
+    scale = (torch.clamp_min(amax, 1e-8).to(torch.float32)
+             * (1.0 / div)).to(x.dtype)
     q = quant.mixed_precision_quantize(x, imp, scale=scale)
     y = (q.values.to(torch.float32) * q.scale).to(x.dtype)
     # the JAX straight-through form x + (y - x), kept for its rounding

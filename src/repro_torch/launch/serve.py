@@ -1,14 +1,18 @@
-"""Serving launcher: prefill + greedy batched decode (port of
-``repro.launch.serve``; the ssm family only).
+"""Serving launcher: prefill + greedy batched decode for every LM family
+(port of ``repro.launch.serve``).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
-      --smoke --batch 4 --prompt-len 32 --new-tokens 32 [--ssd-kernel] \\
-      [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
+      --smoke --batch 4 --prompt-len 32 --new-tokens 32 [--kv-int8] \\
+      [--ssd-kernel] [--device cpu]
 
-Runs on the card unless ``--device cpu`` is given.  ``--ssd-kernel`` sets
-``ArchConfig.use_ssd_kernel``: prefill's scan then runs the hand-written
-CUDA kernel on the card (its plain version on the CPU).  For the ssm
-family the prefill cache is the decode cache.
+Runs on the card unless ``--device cpu`` is given.  ``--kv-int8`` keeps
+the dense and moe decode caches in int8 (``ArchConfig.kv_cache_dtype``).
+``--ssd-kernel`` sets ``ArchConfig.use_ssd_kernel``: the ssm and hybrid
+prefill scans then run the hand-written CUDA kernel on the card (its plain
+version on the CPU).  The decode cache comes from the prefill cache
+through ``transformer.decode_cache_from_prefill``, hybrid ring buffers
+included (the JAX launcher decodes a hybrid request from a zeroed cache:
+ROADMAP.md, Queue 3 item 18).
 """
 from __future__ import annotations
 
@@ -34,14 +38,11 @@ def serve(cfg: ArchConfig, params: dict, prompts: torch.Tensor,
 
     Returns (tokens (B, new_tokens) int64, timings).  The first token
     comes from prefill's logits, each later one from one ``decode_step``.
-    ``timings`` holds ``prefill_s`` and ``decode_s`` (wall seconds, each
-    ended by a device synchronise), ``decode_steps``, and ``launches``:
-    the hand-written kernels launched in each phase, by name.
+    ``timings`` holds ``prefill_s`` (prefill and the decode cache built
+    from it) and ``decode_s`` (wall seconds, each ended by a device
+    synchronise), ``decode_steps``, and ``launches``: the hand-written
+    kernels launched in each phase, by name.
     """
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"serve runs the 'ssm' family only, not {cfg.family!r}; see "
-            f"ROADMAP.md, Queue 1 item 7")
     if new_tokens < 1:
         raise ValueError(f"new_tokens={new_tokens} must be at least 1")
     device = prompts.device
@@ -50,8 +51,11 @@ def serve(cfg: ArchConfig, params: dict, prompts: torch.Tensor,
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = T.prefill(params, cfg, tokens=prompts)
+        logits, pcache = T.prefill(params, cfg, tokens=prompts)
         tok = logits[:, -1].argmax(dim=-1)[:, None]
+        cache = T.decode_cache_from_prefill(cfg, pcache,
+                                            prompt_len + new_tokens)
+        del pcache
         _sync(device)
         prefill_s = time.perf_counter() - t0
         counts.append(launch_counts())
@@ -83,6 +87,8 @@ def main(argv=None):
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--device", default=None,
                     help="torch device; the card ('cuda') by default")
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="int8 KV cache (dense and moe)")
     ap.add_argument("--ssd-kernel", action="store_true",
                     help="prefill through the fused SSD scan kernel")
     args = ap.parse_args(argv)
@@ -91,6 +97,8 @@ def main(argv=None):
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    if args.kv_int8:
+        cfg = cfg.scaled(kv_cache_dtype="int8")
     if args.ssd_kernel:
         cfg = cfg.scaled(use_ssd_kernel=True)
 
@@ -106,7 +114,8 @@ def main(argv=None):
           f"{timings['prefill_s']:.2f}s on {device}")
     dt = timings["decode_s"]
     print(f"decode: {seq.shape[1]} tokens x {args.batch} in {dt:.2f}s "
-          f"({args.batch * seq.shape[1] / max(dt, 1e-9):.1f} tok/s)")
+          f"({args.batch * seq.shape[1] / max(dt, 1e-9):.1f} tok/s)"
+          f"{' [int8 KV]' if args.kv_int8 else ''}")
     print("sample:", seq[0, :12].tolist())
 
 

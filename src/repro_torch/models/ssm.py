@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd_scan.ops import pick_chunk, ssd_scan_fused
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import rms_norm, silu
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -138,13 +138,6 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as XLA computes it: x * 1 / (1 + e^-x), each op
-    rounded to x's dtype.  In bfloat16 ``F.silu`` rounds once and lands an
-    ulp away from the JAX package on ~40 % of values."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
-
-
 def _causal_conv(xBC, w, b):
     """Depthwise causal conv, width W, via shifted adds (W is tiny)."""
     W = w.shape[0]
@@ -165,7 +158,7 @@ def mamba_mixer(x, p, cfg: ArchConfig, chunk: int = 128,
     z = torch.einsum("btd,dk->btk", x, p["in_z"])
     xBC_raw = torch.einsum("btd,dk->btk", x, p["in_xbc"])
     dt = torch.einsum("btd,dk->btk", x, p["in_dt"])
-    xBC = _silu(_causal_conv(xBC_raw, p["conv_w"], p["conv_b"]))
+    xBC = silu(_causal_conv(xBC_raw, p["conv_w"], p["conv_b"]))
     xs = xBC[..., :di].reshape(b, t, h, hd)
     Bm = xBC[..., di:di + n]
     Cm = xBC[..., di + n:]
@@ -180,7 +173,7 @@ def mamba_mixer(x, p, cfg: ArchConfig, chunk: int = 128,
                                   Cm.to(torch.float32), ck)
     y = y + xs.to(torch.float32) * p["D"][None, None, :, None]
     y = y.reshape(b, t, di).to(x.dtype)
-    y = rms_norm(y * _silu(z), p["gate_norm"], cfg.norm_eps)
+    y = rms_norm(y * silu(z), p["gate_norm"], cfg.norm_eps)
     out = torch.einsum("btk,kd->btd", y, p["out_proj"])
     if return_cache:
         w = cfg.ssm_conv_width
@@ -213,7 +206,7 @@ def mamba_decode(x, cache, p, cfg: ArchConfig):
     win = torch.cat([cache["conv"], xBC[:, None, :]], dim=1)
     new_conv = win[:, 1:, :]
     conv_out = torch.einsum("bwc,wc->bc", win, p["conv_w"]) + p["conv_b"]
-    xBC = _silu(conv_out)
+    xBC = silu(conv_out)
     xs = xBC[..., :di].reshape(b, h, hd).to(torch.float32)
     Bm = xBC[..., di:di + n].to(torch.float32)
     Cm = xBC[..., di + n:].to(torch.float32)
@@ -222,6 +215,6 @@ def mamba_decode(x, cache, p, cfg: ArchConfig):
     y, new_state = ssd_decode_step(xs, dt, A, Bm, Cm, cache["state"])
     y = y + xs * p["D"][None, :, None]
     y = y.reshape(b, di).to(x.dtype)
-    y = rms_norm(y * _silu(z), p["gate_norm"], cfg.norm_eps)
+    y = rms_norm(y * silu(z), p["gate_norm"], cfg.norm_eps)
     out = (y @ p["out_proj"])[:, None, :]
     return out, {"state": new_state, "conv": new_conv}

@@ -525,7 +525,9 @@ def _ssd_inputs(cuda, bh, t, p, n, heads, dt_scale, seed):
     (24, 512, 64, 128, 256, 24),      # 24 heads, chunk 256 (two tiles)
     (8, 4000, 64, 128, 32, 4),        # many chunks, T ragged against 128
     (96, 4095, 64, 128, 1, 24),       # serve width, odd T (chunk 1)
-    (4, 200, 13, 10, 100, 2)])        # p, n, p n not multiples of 4
+    (4, 200, 13, 10, 100, 2),         # p, n, p n not multiples of 4
+    (200, 2048, 64, 16, 128, 50),     # hymba-1.5b's prefill: n 16, 50 heads
+    (100, 2049, 64, 16, 1, 50)])      # hymba, T + 1 (chunk 1)
 def test_ssd_scan_kernel_matches_plain(cuda, bh, t, p, n, chunk, heads):
     x, dA, B, C = _ssd_inputs(cuda, bh, t, p, n, heads, 1.0, t + p)
     y, s = ssd_scan_kernel(x, dA, B, C, chunk=chunk, heads=heads)
@@ -591,6 +593,72 @@ def test_smoke_prefill_goes_through_the_ssd_kernel(cuda):
                          tokens=toks)
     assert float((logits - plain).abs().max()
                  / plain.abs().max()) < 2e-2
+
+
+@pytest.mark.requires_cuda
+def test_smoke_hybrid_prefill_goes_through_the_ssd_kernel(cuda):
+    """hymba's prefill (state 8 at smoke widths): one launch per layer,
+    none in decode; the decode cache carries the ring buffers over."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    cfg = get_arch("hymba-1.5b").smoke().scaled(use_ssd_kernel=True)
+    params = T.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda)
+    runtime.reset_launch_counts()
+    logits, pcache = T.prefill(params, cfg, tokens=toks)
+    assert runtime.launch_counts()["ssd_scan"] == cfg.num_layers
+    cache = T.decode_cache_from_prefill(cfg, pcache, 44)
+    T.decode_step(params, cache, logits[:, -1].argmax(-1)[:, None], 40, cfg)
+    assert runtime.launch_counts()["ssd_scan"] == cfg.num_layers
+
+
+# float32 models with PSSA and TIPS on: cuBLAS against the CPU's sum
+# order, and a TIPS code on a rounding boundary that flips by a step (the
+# FEATURES_RTOL of tests/test_torch_lm.py)
+LM_CARD_RTOL = 1e-3
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen2-moe-a2.7b",
+                                  "hymba-1.5b"])
+def test_smoke_lm_on_the_card_matches_the_cpu(cuda, arch):
+    """The same weights on the card and on the CPU: prefill logits and
+    three greedy decode steps (fed the CPU's tokens); ``serve`` on the
+    card gives tokens in the vocabulary."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+    cfg = get_arch(arch).smoke().scaled(dtype="float32",
+                                        use_ssd_kernel=True)
+    cpu = T.init_params(torch.Generator().manual_seed(0), cfg)
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(cuda)
+    gpu = to_card(cpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(1))
+
+    def rel(a, ref):
+        return float((a.cpu() - ref).abs().max() / ref.abs().max())
+    lc, pc = T.prefill(cpu, cfg, tokens=toks)
+    lg, pg = T.prefill(gpu, cfg, tokens=toks.to(cuda))
+    assert rel(lg, lc) < LM_CARD_RTOL
+    cc = T.decode_cache_from_prefill(cfg, pc, 28)
+    cg = T.decode_cache_from_prefill(cfg, pg, 28)
+    tok = lc[:, -1].argmax(-1)[:, None]
+    for i in range(3):
+        sc, cc = T.decode_step(cpu, cc, tok, 24 + i, cfg)
+        sg, cg = T.decode_step(gpu, cg, tok.to(cuda), 24 + i, cfg)
+        assert rel(sg, sc) < LM_CARD_RTOL, i
+        tok = sc[:, -1].argmax(-1)[:, None]
+    seq, tm = serve(cfg, gpu, toks.to(cuda), 4)
+    assert seq.is_cuda and tuple(seq.shape) == (2, 4)
+    assert int(seq.min()) >= 0 and int(seq.max()) < cfg.vocab_size
+    want = cfg.num_layers if cfg.family == "hybrid" else 0
+    assert tm["launches"]["prefill"].get("ssd_scan", 0) == want
+    assert tm["launches"]["decode"].get("ssd_scan", 0) == 0
 
 
 @pytest.mark.requires_cuda

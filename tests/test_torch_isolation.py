@@ -54,7 +54,12 @@ def test_port_imports_neither_jax_nor_repro():
         for mod in ("kernel", "ops", "ref"):
             assert f"repro_torch.kernels.{kern}.{mod}" in new
     for mod in ("configs.base", "configs.mamba2_130m", "models.layers",
-                "models.ssm", "models.transformer", "launch.serve",
+                "models.ssm", "models.transformer", "models.moe",
+                "configs.chatglm3_6b", "configs.hymba_1_5b",
+                "configs.internvl2_26b", "configs.llama3_8b",
+                "configs.llama4_scout_17b_a16e", "configs.musicgen_large",
+                "configs.qwen2_moe_a2_7b", "configs.yi_34b",
+                "configs.yi_9b", "launch.serve",
                 "diffusion.denoiser", "diffusion.dit", "configs.dit_s",
                 "core.policies", "launch.cli", "launch.scheduler",
                 "launch.serve_diffusion", "launch.router",

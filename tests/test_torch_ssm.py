@@ -376,6 +376,8 @@ def test_convert_lm_params_round_trip(J, dtype):
 
 
 def test_configs_match_the_jax_package(J):
+    """All ten architectures field for field, smoke configs included, and
+    the published geometry of the four the card runs at full width."""
     for name in ARCH_NAMES:
         full_j, full_t = J.get_arch(name), get_arch(name)
         assert dataclasses.asdict(full_t) == dataclasses.asdict(full_j)
@@ -388,17 +390,36 @@ def test_configs_match_the_jax_package(J):
             cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv_width,
             cfg.vocab_size, cfg.dtype) == (24, 768, 1536, 24, 64, 128, 4,
                                            50280, "bfloat16")
+    cfg = get_arch("llama3-8b")
+    assert (cfg.family, cfg.num_layers, cfg.d_model, cfg.num_heads,
+            cfg.num_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size,
+            cfg.rope_theta, cfg.dtype) == ("dense", 32, 4096, 32, 8, 128,
+                                           14336, 128256, 500000.0,
+                                           "bfloat16")
+    cfg = get_arch("qwen2-moe-a2.7b")
+    assert (cfg.family, cfg.num_layers, cfg.d_model, cfg.num_heads,
+            cfg.num_kv_heads, cfg.num_experts, cfg.num_shared_experts,
+            cfg.top_k, cfg.moe_d_ff, cfg.vocab_size,
+            cfg.moe_capacity_factor) == ("moe", 24, 2048, 16, 16, 60, 4, 4,
+                                         1408, 151936, 1.25)
+    cfg = get_arch("hymba-1.5b")
+    assert (cfg.family, cfg.num_layers, cfg.d_model, cfg.num_heads,
+            cfg.num_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size,
+            cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim, cfg.d_inner,
+            cfg.sliding_window) == ("hybrid", 32, 1600, 25, 5, 64, 5504,
+                                    32001, 16, 50, 64, 3200, 1024)
+    assert [i for i in range(32) if T._is_global_layer(cfg, i)] == [0, 16,
+                                                                     31]
 
 
-def test_other_architectures_point_at_the_roadmap():
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        get_arch("llama3-8b")
-    dense = ArchConfig(name="d", family="dense", num_layers=1, d_model=8,
-                       num_heads=2, num_kv_heads=1, d_ff=16, vocab_size=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.init_params(torch.Generator().manual_seed(0), dense)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.init_cache(dense, 1, 8)
+def test_every_architecture_loads_and_unknown_names_raise():
+    assert len(ARCH_NAMES) == 10 and len(set(ARCH_NAMES)) == 10
+    for name in ARCH_NAMES:
+        cfg = get_arch(name)
+        assert isinstance(cfg, ArchConfig) and cfg.name == name
+        assert cfg.family in ("dense", "moe", "ssm", "hybrid")
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_arch("llama3-70b")
 
 
 def test_init_params_shapes_and_device():
