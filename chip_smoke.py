@@ -139,6 +139,25 @@ no result line):
                  decode step against prefill(T + 1) with zeroed-KV and
                  (hymba) zeroed-SSM-state controls; profiles of prefill
                  and 16 decode steps.
+17. train      — LM training through ``launch.train.build`` and
+                 ``train.make_train_step`` (AdamW on
+                 ``linear_warmup_cosine``, remat on, PSSA and TIPS as
+                 configured, bf16): hymba-1.5b at its published geometry,
+                 depth not cut, batch 4 x 2048 from ``SyntheticLMDataset``:
+                 (a) four steps with finite losses and grad norms above 0,
+                 (b) step 1's loss against ``loss_fn`` of the initial
+                 parameters under ``no_grad``, (c) the fourth loss on one
+                 batch repeated below the first; qwen2-moe-a2.7b at its
+                 published widths, depth cut to 2 of 24 layers, batch 4 x
+                 1024: (a) and a finite aux above 0; at hymba's widths cut
+                 to 4 layers: (d) a ``Trainer`` run killed at step 3 and
+                 resumed in a fresh one ends where an uninterrupted run
+                 ends (bit for bit, or within ten times the gap between
+                 two uninterrupted runs), (e) gradients with remat equal
+                 those without, (f) the ``ssd_scan`` kernel route refuses
+                 to train; s a step, tokens/s, peak GB, the busy share and
+                 the five largest device ops of one step, the model-FLOP
+                 share of 989 TFLOP/s.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
@@ -317,6 +336,24 @@ LM_CARRY_F32_RTOL = 1e-3
 # from the bf16 cache (the same prefill): the int8 grid (0.05) rounds
 # keys and values by up to 0.025.  A wrong scale or layout reads O(1).
 LM_INT8_RTOL = 0.2
+
+# The train phase.  TRAIN_LR: the CLI's default rate for (a).  (c) asks
+# whether the gradient points down, so it steps at TRAIN_DESCENT_LR: a
+# first Adam step moves every weight by about lr along the sign of its
+# gradient, which at d_model 1600 moves a layer's output by about lr d
+# times its scale (~0.5 at 3e-4, with no warm-up in four steps) and can
+# step past the minimum along that direction.  TRAIN_LOSS_RTOL: (b)'s
+# bound, step 1's loss (autograd recording, remat) against loss_fn under
+# no_grad on the same parameters and batch: the same kernels in the same
+# order give the same bits, and the bound leaves room for a reduction
+# that cuBLAS or torch runs in another order under autograd (float32
+# logsumexp and mean over 8192 tokens).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
+TRAIN_MOE_SEQ, TRAIN_MOE_LAYERS = 1024, 2
+TRAIN_FT_LAYERS, TRAIN_FT_SEQ = 4, 1024
+TRAIN_LR, TRAIN_DESCENT_LR = 3e-4, 1e-5
+TRAIN_LOSS_RTOL = 1e-5
+H100_BF16_DENSE_FLOPS = 989e12
 
 REPLACES = {
     "pssa_attention":
@@ -1041,8 +1078,8 @@ def _route_pair_per_layer(torch, cfg, params, prompts) -> list:
         if cfg.family == "ssm":
             x = x + hk
         else:
-            x, _ = T._block_train(x, lp, cfg, positions,
-                                  is_global=T._is_global_layer(cfg, i))
+            x, _, _ = T._block_train(x, lp, cfg, positions,
+                                     is_global=T._is_global_layer(cfg, i))
     return pairs
 
 
@@ -1262,6 +1299,7 @@ def lm_phase(torch):
     from repro_torch.kernels import runtime
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
 
     for seed, name in enumerate(LM_GEOMETRY):
         t_model = time.perf_counter()
@@ -1273,7 +1311,7 @@ def lm_phase(torch):
         params = T.init_params(
             torch.Generator(device="cuda").manual_seed(seed), cfg)
         torch.cuda.synchronize()
-        n = sum(a.numel() for a in _leaves(params))
+        n = sum(a.numel() for a in leaves(params))
         print(f"{name}: {n / 1e9:.3f} B parameters, "
               f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card, "
               f"initialised in {time.perf_counter() - t0:.2f} s")
@@ -1403,10 +1441,244 @@ def lm_phase(torch):
         torch.cuda.reset_peak_memory_stats()
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    return [tree]
+# ---------------------------------------------------------------------------
+def _synced_s(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _train_readings(torch, name, cfg, step, state, ds, times, seq):
+    """Print s a step (the median of steps 2-4), tokens/s, peak GB, the
+    model-FLOP share, and profile one more step (busy share, the five
+    largest device ops).  Returns the state after that step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.model_flops import model_flops
+    s_step = sorted(times[1:])[len(times[1:]) // 2]
+    flops = model_flops(cfg, ShapeConfig(name, seq, TRAIN_BATCH, "train"))
+    print(f"  {name}: s a step {s_step:.4f} (median of steps 2-"
+          f"{len(times)}; {', '.join(f'{t:.4f}' for t in times)}), "
+          f"tokens/s {TRAIN_BATCH * seq / s_step:.0f}, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB, model FLOPs "
+          f"{flops / 1e12:.1f} T a step, "
+          f"{flops / s_step / H100_BF16_DENSE_FLOPS:.2%} of "
+          f"{H100_BF16_DENSE_FLOPS / 1e12:.0f} TFLOP/s")
+    box = [state]
+    batch = ds.batch_at(len(times), device="cuda")
+
+    def one():
+        dt, (box[0], _) = _synced_s(torch, lambda: step(box[0], batch))
+        return dt
+    profile_breakdown(torch, one, f"{name} train step", top=5)
+    return box[0]
+
+
+def _max_diff(torch, a_tree, b_tree) -> float:
+    from repro_torch import tree as tree_util
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(tree_util.leaves(a_tree),
+                               tree_util.leaves(b_tree)))
+
+
+@phase("train")
+def train_phase(torch):
+    """LM training at published widths: hymba-1.5b whole, qwen2-moe-a2.7b
+    cut to 2 layers, and hymba cut to 4 layers for the Trainer's fault
+    tolerance, remat and the ssd_scan guard (docstring, item 17)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.train import build
+    from repro_torch.models import transformer as T
+    from repro_torch.train import TrainConfig, Trainer, make_train_step
+    from repro_torch.train.trainer import _value_and_grad
+    from repro_torch.tree import leaves
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def zero():
+        return torch.zeros((), device="cuda")
+
+    runtime.reset_launch_counts()
+    # hymba-1.5b at its published geometry, depth not cut
+    name = "hymba-1.5b"
+    t_model = time.perf_counter()
+    cfg, ds, opt, _ = build(name, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                            TRAIN_LR)
+    _hold_geometry(cfg, name)
+    require(not cfg.use_ssd_kernel and cfg.tips and cfg.pssa,
+            f"{name}: not the configured training path")
+    free()
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+    n = sum(a.numel() for a in leaves(params))
+    step = make_train_step(cfg, opt)
+    state = (params, opt.init(params), zero())
+    del params
+    batch = ds.batch_at(0, device="cuda")
+    with torch.no_grad():
+        l0 = float(T.loss_fn(state[0], batch, cfg)[0])
+    losses, norms, times = [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = ds.batch_at(i, device="cuda")
+        dt, (state, m) = _synced_s(torch, lambda: step(state, batch))
+        times.append(dt)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    print(f"  {name}: {n / 1e9:.3f} B parameters; losses "
+          f"{', '.join(f'{v:.5f}' for v in losses)}; grad norms "
+          f"{', '.join(f'{v:.4f}' for v in norms)} (lr {TRAIN_LR})")
+    require(all(math.isfinite(v) for v in losses + norms)
+            and all(v > 0 for v in norms),
+            f"{name}: (a) a loss or grad norm is not finite and positive")
+    gap = abs(losses[0] - l0) / abs(l0)
+    print(f"  {name}: (b) step 1's loss {losses[0]!r} against loss_fn "
+          f"under no_grad {l0!r}: {gap:.3e} (limit {TRAIN_LOSS_RTOL})")
+    require(gap <= TRAIN_LOSS_RTOL, f"{name}: (b) {gap:.3e}")
+    state = _train_readings(torch, name, cfg, step, state, ds, times,
+                            TRAIN_SEQ)
+    # (c) on one batch repeated, from the trained parameters and a fresh
+    # optimiser at the descent rate
+    params = state[0]
+    del state
+    gc.collect()
+    _, _, opt_c, _ = build(name, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                           TRAIN_DESCENT_LR)
+    step_c = make_train_step(cfg, opt_c)
+    state = (params, opt_c.init(params), zero())
+    del params
+    batch = ds.batch_at(TRAIN_STEPS + 1, device="cuda")
+    same = []
+    for i in range(TRAIN_STEPS):
+        state, m = step_c(state, batch)
+        same.append(float(m["loss"]))
+    print(f"  {name}: (c) one batch repeated at lr {TRAIN_DESCENT_LR}: "
+          f"losses {', '.join(f'{v:.5f}' for v in same)}")
+    require(same[-1] < same[0], f"{name}: (c) the loss did not fall")
+    del state, batch, m
+    free()
+    print(f"  {name} in {time.perf_counter() - t_model:.2f} s")
+
+    # qwen2-moe-a2.7b at its published widths, 2 of 24 layers
+    name = "qwen2-moe-a2.7b"
+    t_model = time.perf_counter()
+    cfg, ds, opt, _ = build(name, TRAIN_STEPS, TRAIN_BATCH, TRAIN_MOE_SEQ,
+                            TRAIN_LR)
+    _hold_geometry(cfg, name)
+    cfg = cfg.scaled(num_layers=TRAIN_MOE_LAYERS)
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(1),
+                           cfg)
+    n = sum(a.numel() for a in leaves(params))
+    step = make_train_step(cfg, opt)
+    state = (params, opt.init(params), zero())
+    del params
+    losses, norms, auxes, times = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = ds.batch_at(i, device="cuda")
+        dt, (state, m) = _synced_s(torch, lambda: step(state, batch))
+        times.append(dt)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        auxes.append(float(m["aux"]))
+    print(f"  {name} ({TRAIN_MOE_LAYERS} of 24 layers): {n / 1e9:.3f} B "
+          f"parameters; losses {', '.join(f'{v:.5f}' for v in losses)}; "
+          f"grad norms {', '.join(f'{v:.4f}' for v in norms)}; aux "
+          f"{', '.join(f'{v:.5f}' for v in auxes)}")
+    require(all(math.isfinite(v) for v in losses + norms + auxes)
+            and all(v > 0 for v in norms + auxes),
+            f"{name}: (a) a loss, grad norm or aux is not finite and "
+            f"positive")
+    state = _train_readings(torch, name, cfg, step, state, ds, times,
+                            TRAIN_MOE_SEQ)
+    del state, batch, m
+    free()
+    print(f"  {name} in {time.perf_counter() - t_model:.2f} s")
+
+    # hymba at its published widths, 4 layers: (d), (e), (f)
+    name = "hymba-1.5b"
+    t_model = time.perf_counter()
+    cfg, ds, opt, _ = build(name, TRAIN_STEPS, TRAIN_BATCH, TRAIN_FT_SEQ,
+                            TRAIN_LR)
+    cfg = cfg.scaled(num_layers=TRAIN_FT_LAYERS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        def tc(sub, every):
+            return TrainConfig(steps=TRAIN_STEPS, checkpoint_every=every,
+                               log_every=1, checkpoint_dir=os.path.join(
+                                   root, sub))
+
+        class Killed(RuntimeError):
+            pass
+
+        def killer(i):
+            if i == 3:
+                raise Killed()
+        # two uninterrupted runs: the card's run-to-run gap
+        t1 = Trainer(cfg, ds, opt, tc("clean", 1000), device="cuda")
+        clean, _ = t1.run()
+        st = t1._fresh_state(torch.Generator(device="cuda").manual_seed(0))
+        for i in range(TRAIN_STEPS):
+            st, _ = t1.step_fn(st, ds.batch_at(i, device="cuda"))
+        gap = _max_diff(torch, clean, st)
+        del st
+        try:
+            Trainer(cfg, ds, opt, tc("killed", 2), failure_hook=killer,
+                    device="cuda").run()
+            require(False, f"{name}: (d) the failure hook did not fire")
+        except Killed:
+            pass
+        resumed, hist = Trainer(cfg, ds, opt, tc("killed", 2),
+                                device="cuda").run()
+        require(hist[0][0] == 3, f"{name}: (d) resumed at {hist[0][0]}")
+        diff = _max_diff(torch, resumed, clean)
+        bound = 10 * gap
+        print(f"  {name} ({TRAIN_FT_LAYERS} layers, {TRAIN_BATCH} x "
+              f"{TRAIN_FT_SEQ}): (d) two uninterrupted runs differ by "
+              f"{gap!r}; killed at step 3 and resumed against uninterrupted "
+              f"{diff!r} (limit {'bit for bit' if gap == 0 else bound})")
+        require(diff <= bound, f"{name}: (d) resumed {diff} > {bound}")
+        params = clean[0]
+        del clean, resumed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    batch = ds.batch_at(0, device="cuda")
+    g_on = _value_and_grad(params, batch, cfg)[1]
+    g_off = _value_and_grad(params, batch, cfg, remat=False)[1]
+    g_off2 = _value_and_grad(params, batch, cfg, remat=False)[1]
+    g_gap = _max_diff(torch, g_off, g_off2)
+    g_diff = _max_diff(torch, g_on, g_off)
+    print(f"  {name}: (e) gradients, remat against none {g_diff!r}; two "
+          f"runs without remat {g_gap!r} (limit "
+          f"{'bit for bit' if g_gap == 0 else 10 * g_gap})")
+    require(g_diff <= 10 * g_gap, f"{name}: (e) remat moved the gradients")
+    del g_on, g_off, g_off2
+    kcfg = cfg.scaled(use_ssd_kernel=True)
+    before = runtime.launch_counts().get("ssd_scan", 0)
+    try:
+        _value_and_grad(params, batch, kcfg)
+        refused = "no error"
+    except RuntimeError as exc:
+        refused = str(exc)
+    require("no backward" in refused,
+            f"{name}: (f) the ssd_scan route took a gradient: {refused}")
+    require(runtime.launch_counts().get("ssd_scan", 0) == before,
+            f"{name}: (f) ssd_scan launched while refusing")
+    print(f"  {name}: (f) use_ssd_kernel=True refuses to train: "
+          f"RuntimeError")
+    counts = runtime.launch_counts()
+    require(sum(counts.values()) == 0,
+            f"train: a hand-written kernel launched: {counts}")
+    del params, batch
+    free()
+    print(f"  {name} ({TRAIN_FT_LAYERS} layers) in "
+          f"{time.perf_counter() - t_model:.2f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -4356,6 +4628,7 @@ def main() -> int:
         parity_phase(torch, eng)
         serve_counts = serve_phase(torch)
         lm_phase(torch)
+        train_phase(torch)
     except Exception as exc:                      # report, then fail
         import traceback
         traceback.print_exc()

@@ -15,6 +15,11 @@ The text encoder has no conv weights, so its tree is copied unchanged.
 (``jax.device_get(transformer.init_params(...))``) and changes no layout:
 the same nesting, the leading L axis of the stacked layer leaves kept.
 
+``convert_train_state`` takes a JAX training state ``(params, AdamWState,
+residual)`` (``jax.device_get`` of the trainer's state) and returns the
+port's, so that a run can continue in the port from a JAX state taken
+mid-run.
+
 bfloat16 leaves (numpy's ``bfloat16`` from ml_dtypes, which
 ``torch.from_numpy`` refuses) cross as their uint16 bits and are viewed
 back as ``torch.bfloat16``: the values are carried bit for bit.
@@ -56,6 +61,20 @@ def convert_lm_params(tree, device="cpu"):
     if isinstance(tree, (list, tuple)):
         return [convert_lm_params(v, device) for v in tree]
     return _tensor(np.asarray(tree), device)
+
+
+def convert_train_state(state, device="cpu"):
+    """A JAX ``(params, AdamWState(step, m, v), residual)`` (numpy leaves)
+    -> the port's ``(params, optim.AdamWState, residual)``; the residual
+    is a tree like the parameters under gradient compression, else a
+    scalar."""
+    from repro_torch.optim.adamw import AdamWState
+    params, opt, residual = state
+    return (convert_lm_params(params, device),
+            AdamWState(step=_tensor(np.asarray(opt.step), device),
+                       m=convert_lm_params(opt.m, device),
+                       v=convert_lm_params(opt.v, device)),
+            convert_lm_params(residual, device))
 
 
 def convert_params(text, unet, vae, device="cpu") -> dict:

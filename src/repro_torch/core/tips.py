@@ -56,8 +56,10 @@ def apply_precision_mask(x: torch.Tensor, important: torch.Tensor,
              * (1.0 / div)).to(x.dtype)
     q = quant.mixed_precision_quantize(x, imp, scale=scale)
     y = (q.values.to(torch.float32) * q.scale).to(x.dtype)
-    # the JAX straight-through form x + (y - x), kept for its rounding
-    return x + (y - x)
+    # straight-through: the forward value is the JAX form x + (y - x),
+    # kept for its rounding; the gradient is the identity, as under JAX's
+    # stop_gradient
+    return x + (y - x).detach()
 
 
 def workload_low_precision_fraction(ratios_per_iter,

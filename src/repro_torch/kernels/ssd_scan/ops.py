@@ -3,7 +3,10 @@
 
 A CUDA tensor goes through the hand-written kernel, a CPU tensor (or
 ``use_kernel=False``) through the plain sequential recurrence; there is no
-fallback from one to the other.  The kernel reads each batch row's B and C
+fallback from one to the other.  The kernel has no backward: where
+autograd records and an input requires a gradient, the kernel route
+raises (``use_ssd_kernel=False`` trains through the plain chunked scan).
+The kernel reads each batch row's B and C
 once per head in place (``heads=h``), where the TPU kernel's contract, which
 the plain version keeps, copies them per head.
 """
@@ -43,6 +46,12 @@ def ssd_scan_fused(x, dt, A, B, C, chunk: int = 128,
     Bf = B.to(torch.float32).contiguous()
     Cf = C.to(torch.float32).contiguous()
     if use_kernel and x.is_cuda:
+        if torch.is_grad_enabled() and any(
+                a.requires_grad for a in (x, dt, A, B, C)):
+            raise RuntimeError(
+                "ssd_scan_fused: the ssd_scan kernel has no backward, and "
+                "its inputs require a gradient; set use_ssd_kernel=False "
+                "to train through the plain chunked scan")
         y, state = ssd_scan_kernel(xf, dAf, Bf, Cf, chunk=ck, heads=h)
     else:
         def per_head(a):

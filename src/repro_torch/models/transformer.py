@@ -4,8 +4,10 @@
 Parameters keep the JAX package's layout: every layer leaf is stacked with
 a leading L axis, so weights carry across one to one.  ``lax.scan`` over
 that axis becomes a Python loop, and the per-layer global flag of the
-hybrid family a Python bool; there is no remat and no auxiliary-loss
-output (no training yet).
+hybrid family a Python bool.  ``forward`` returns the moe family's
+load-balance loss summed over the layers (``aux``), and with ``remat``
+recomputes each layer in the backward pass (JAX's save-nothing
+``jax.checkpoint``); ``loss_fn`` is the training objective.
 
 Paper features: PSSA (post-softmax score pruning in self-attention,
 ``cfg.pssa``) and TIPS (sink-token CAS -> per-token INT12/INT6 FFN
@@ -21,6 +23,7 @@ key and value into its cache in place.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -130,8 +133,10 @@ def init_params(generator: torch.Generator, cfg: ArchConfig) -> dict:
 # ----------------------------------------------------------------------------
 def _block_train(x, lp, cfg: ArchConfig, positions, is_global=None,
                  collect_cache: bool = False):
-    """One layer, full-sequence.  Returns (x, cache_entry); the moe
-    family's auxiliary loss is dropped (it comes with training)."""
+    """One layer, full-sequence.  Returns (x, aux_loss float32 scalar,
+    cache_entry); aux is the moe family's load-balance loss, 0 for the
+    other families."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
     prune = cfg.pssa_threshold if cfg.pssa else 0.0
 
@@ -141,7 +146,7 @@ def _block_train(x, lp, cfg: ArchConfig, positions, is_global=None,
             h, cache = SSM.mamba_mixer(xa, lp["ssm"], cfg, return_cache=True)
         else:
             h = SSM.mamba_mixer(xa, lp["ssm"], cfg)
-        return x + h, cache
+        return x + h, aux, cache
 
     xa = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family == "hybrid":
@@ -168,35 +173,69 @@ def _block_train(x, lp, cfg: ArchConfig, positions, is_global=None,
     tips_mask = sink < cfg.tips_threshold if cfg.tips else None
     xf = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
-        f, _ = MOE.moe_ffn(xf, lp["moe"], cfg, tips_important=tips_mask)
+        f, aux = MOE.moe_ffn(xf, lp["moe"], cfg, tips_important=tips_mask)
     else:
         f = L.ffn(xf, lp, cfg.ffn_activation, tips_important=tips_mask)
-    return x + f.to(x.dtype), cache
+    return x + f.to(x.dtype), aux, cache
 
 
 # ----------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (train / prefill)
 # ----------------------------------------------------------------------------
 def forward(params, cfg: ArchConfig, tokens=None, embeds=None,
-            collect_cache: bool = False, last_logit_only: bool = False):
-    """-> (logits float32, cache-or-None); the cache is stacked over
-    layers like the parameters (the JAX package's ``aux`` output, the moe
-    load-balance loss, comes with training)."""
+            remat: bool = True, collect_cache: bool = False,
+            last_logit_only: bool = False):
+    """-> (logits float32, aux, cache-or-None).
+
+    ``aux`` is the float32 sum over layers of the moe load-balance loss
+    (0 for the other families); the cache is stacked over layers like the
+    parameters.  ``remat`` wraps each layer in a non-reentrant
+    ``torch.utils.checkpoint``: nothing inside a layer is saved for the
+    backward pass, which recomputes it (the JAX package's save-nothing
+    ``jax.checkpoint``).  It changes no value, and where autograd records
+    nothing it is skipped.  ``cfg.remat_save_collectives`` names the
+    tensor-parallel all-reduce outputs to keep; with no mesh there is none
+    (it comes with multi-GPU training), so it is ignored here.
+    """
     x = L.embed(tokens, params["embed"]) if embeds is None else embeds
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device)[None].expand(b, t)
+    wrap = remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for i in range(cfg.num_layers):
         ig = _is_global_layer(cfg, i) if cfg.sliding_window else None
-        x, cache = _block_train(x, _layer(params["layers"], i), cfg,
-                                positions, is_global=ig,
-                                collect_cache=collect_cache)
+        lp = _layer(params["layers"], i)
+        if wrap:
+            x, a, cache = torch.utils.checkpoint.checkpoint(
+                _block_train, x, lp, cfg, positions, ig, collect_cache,
+                use_reentrant=False)
+        else:
+            x, a, cache = _block_train(x, lp, cfg, positions, is_global=ig,
+                                       collect_cache=collect_cache)
+        aux = aux + a
         caches.append(cache)
     if last_logit_only:
         x = x[:, -1:, :]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.unembed(x, params["unembed"])
-    return logits, (_stack(caches) if collect_cache else None)
+    return logits, aux, (_stack(caches) if collect_cache else None)
+
+
+def loss_fn(params, batch, cfg: ArchConfig, aux_coef: float = 0.01,
+            remat: bool = True):
+    """Next-token cross-entropy: -> (nll + aux_coef * aux, {"nll", "aux"}).
+
+    ``batch`` holds ``labels`` (B, T) and ``tokens`` (B, T) or ``embeds``
+    (B, T, d).  The nll is the mean of logsumexp minus the gold logit over
+    the float32 logits."""
+    logits, aux, _ = forward(params, cfg, tokens=batch.get("tokens"),
+                             embeds=batch.get("embeds"), remat=remat)
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = torch.mean(logz - gold)
+    return nll + aux_coef * aux, {"nll": nll, "aux": aux}
 
 
 # ----------------------------------------------------------------------------
@@ -334,5 +373,7 @@ def decode_step(params, cache, tokens, position: int, cfg: ArchConfig):
 
 def prefill(params, cfg: ArchConfig, tokens=None, embeds=None):
     """Prefill: last-token logits + the populated per-layer cache."""
-    return forward(params, cfg, tokens=tokens, embeds=embeds,
-                   collect_cache=True, last_logit_only=True)
+    logits, _, cache = forward(params, cfg, tokens=tokens, embeds=embeds,
+                               remat=False, collect_cache=True,
+                               last_logit_only=True)
+    return logits, cache

@@ -612,6 +612,113 @@ def test_smoke_hybrid_prefill_goes_through_the_ssd_kernel(cuda):
     assert runtime.launch_counts()["ssd_scan"] == cfg.num_layers
 
 
+@pytest.mark.requires_cuda
+def test_ssd_kernel_route_refuses_a_gradient(cuda):
+    """The kernel has no backward: with inputs that require a gradient
+    under autograd the route raises (nothing falls back to the plain
+    scan), a hybrid model with ``use_ssd_kernel=True`` cannot train, and
+    under ``torch.inference_mode`` and ``no_grad`` the kernel still
+    runs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_fused
+    from repro_torch.models import transformer as T
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(1, 64, 2, 16, generator=g, device=cuda)
+    dt = torch.rand(1, 64, 2, generator=g, device=cuda) * 0.1
+    A = -torch.rand(2, generator=g, device=cuda)
+    B = torch.randn(1, 64, 8, generator=g, device=cuda)
+    C = torch.randn(1, 64, 8, generator=g, device=cuda)
+    runtime.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_scan_fused(x.clone().requires_grad_(), dt, A, B, C, chunk=32)
+    assert runtime.launch_counts().get("ssd_scan", 0) == 0
+    with torch.inference_mode():
+        y, _ = ssd_scan_fused(x, dt, A, B, C, chunk=32)
+    with torch.no_grad():
+        y2, _ = ssd_scan_fused(x.clone().requires_grad_(), dt, A, B, C,
+                               chunk=32)
+    assert runtime.launch_counts()["ssd_scan"] == 2 and torch.equal(y, y2)
+    cfg = get_arch("hymba-1.5b").smoke().scaled(use_ssd_kernel=True)
+    params = T.init_params(torch.Generator(device=cuda).manual_seed(1), cfg)
+    params["layers"]["ssm"]["in_xbc"].requires_grad_()
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), device=cuda)
+    with pytest.raises(RuntimeError, match="use_ssd_kernel=False"):
+        T.loss_fn(params, {"tokens": toks, "labels": toks}, cfg)
+
+
+# the train step's float32 bound between the card and the CPU: cuBLAS
+# against the CPU's sum order, through Adam's per-element normalisation
+# (tests/test_torch_train_step.py), features off
+TRAIN_CARD_PARAM_SHARE = 0.01
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mode", ["plain", "compressed", "microbatches"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "hymba-1.5b"])
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda, arch, mode):
+    """Two train steps from the same state on the card and on the CPU
+    (float32, PSSA and TIPS off), plain, with int8 gradient compression
+    and with two microbatches: losses within 1e-5, parameters within
+    1e-2 lr on all but 1 % of the elements and 4 lr everywhere (a flipped
+    int8 code moves an element as a float32-noise gradient does: the
+    bounds of tests/test_torch_train_step.py); the card launches no
+    hand-written kernel."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW, linear_warmup_cosine
+    from repro_torch.train.trainer import make_train_step
+    from repro_torch import tree as tree_util
+    cfg = get_arch(arch).smoke().scaled(dtype="float32", tips=False,
+                                        pssa=False)
+    lr = 1e-3
+    opt = AdamW(lr=linear_warmup_cosine(lr, 1, 10))
+    compression = mode == "compressed"
+    step = make_train_step(cfg, opt, compression,
+                           2 if mode == "microbatches" else 1)
+    cpu_p = T.init_params(torch.Generator().manual_seed(0), cfg)
+    states = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_util.tree_map(lambda a: a.to(dev), cpu_p)
+        res = (tree_util.tree_map(
+            lambda a: torch.zeros_like(a, dtype=torch.float32), p)
+            if compression else torch.zeros((), device=dev))
+        states[dev] = (p, opt.init(p), res)
+    toks = torch.randint(0, cfg.vocab_size, (2, 4, 32),
+                         generator=torch.Generator().manual_seed(1))
+    runtime.reset_launch_counts()
+    for i in range(2):
+        batch = {"tokens": toks[i], "labels": toks[i].roll(-1, dims=1)}
+        metrics = {}
+        for dev in ("cpu", "cuda"):
+            states[dev], metrics[dev] = step(
+                states[dev], {k: v.to(dev) for k, v in batch.items()})
+        assert abs(float(metrics["cuda"]["loss"])
+                   - float(metrics["cpu"]["loss"])) \
+            <= 1e-5 * float(metrics["cpu"]["loss"])
+        if mode == "microbatches":
+            assert float(metrics["cuda"]["aux"]) == 0.0
+    assert sum(runtime.launch_counts().values()) == 0
+    if compression:
+        assert all(r.is_cuda and r.dtype == torch.float32
+                   for r in tree_util.leaves(states["cuda"][2]))
+    d = torch.cat([(a.cpu() - b).abs().ravel() for a, b in zip(
+        tree_util.leaves(states["cuda"][0]),
+        tree_util.leaves(states["cpu"][0]))])
+    assert float(d.max()) <= 4 * lr
+    assert float((d > 1e-2 * lr).float().mean()) <= TRAIN_CARD_PARAM_SHARE
+
+
+@pytest.mark.requires_cuda
+def test_train_main_runs_on_the_card_by_default(cuda, capsys, tmp_path):
+    from repro_torch.launch import train as train_cli
+    history = train_cli.main(["--arch", "hymba-1.5b", "--smoke", "--steps",
+                              "3", "--batch", "2", "--seq", "32",
+                              "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "device cuda" in out and len(history) == 3
+    assert all(torch.isfinite(torch.tensor(v)) for _, v in history)
+
+
 # float32 models with PSSA and TIPS on: cuBLAS against the CPU's sum
 # order, and a TIPS code on a rounding boundary that flips by a step (the
 # FEATURES_RTOL of tests/test_torch_lm.py)

@@ -35,7 +35,12 @@ print("NEW", sorted(n for n in sys.modules
                                      "repro_torch.diffusion.denoiser",
                                      "repro_torch.diffusion.dit",
                                      "repro_torch.configs.dit_s",
-                                     "repro_torch.kernels.autotune"))))
+                                     "repro_torch.kernels.autotune",
+                                     "repro_torch.tree",
+                                     "repro_torch.optim.",
+                                     "repro_torch.data.",
+                                     "repro_torch.checkpoint.",
+                                     "repro_torch.train."))))
 print("BAD", bad)
 """
 
@@ -63,7 +68,10 @@ def test_port_imports_neither_jax_nor_repro():
                 "diffusion.denoiser", "diffusion.dit", "configs.dit_s",
                 "core.policies", "launch.cli", "launch.scheduler",
                 "launch.serve_diffusion", "launch.router",
-                "kernels.autotune"):
+                "kernels.autotune", "tree", "optim.adamw",
+                "optim.schedules", "optim.compression", "data.pipeline",
+                "checkpoint.store", "launch.model_flops", "train.trainer",
+                "launch.train"):
         assert f"repro_torch.{mod}" in new
 
 
@@ -132,6 +140,15 @@ def test_serve_runs_on_the_card_unless_asked_for_the_cpu():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "mamba2-130m", "--smoke"])
+
+
+def test_train_runs_on_the_card_unless_asked_for_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "mamba2-130m", "--smoke", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path)])
 
 
 def test_serve_diffusion_runs_on_the_card_unless_asked_for_the_cpu():

@@ -489,8 +489,9 @@ def test_architecture_matches_jax(J, arch, features):
             "embeds": None if embs is None else torch.from_numpy(embs)}
     lj, _, _ = jax.jit(lambda p, kw: J.T.forward(p, jc, None, remat=False,
                                                  **kw))(jp, kw_j)
-    lt, none = T.forward(tp, pc, **kw_t)
+    lt, aux, none = T.forward(tp, pc, **kw_t)
     assert none is None and lt.dtype == torch.float32
+    assert aux.dtype == torch.float32 and aux.shape == ()
     assert tuple(lt.shape) == (2, 32, jc.vocab_size)
     assert _rel(lt, lj) < tol
     plj, pcj = jax.jit(lambda p, kw: J.T.prefill(p, jc, None, **kw))(jp, kw_j)
