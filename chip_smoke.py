@@ -82,8 +82,8 @@ no result line):
                  a share of the DBSC-to-float distance across them), SLO
                  overload degrading against queueing round for round,
                  DiT-S/2 at 1 against 2 replicas, the serving phase's
-                 bursty trace through 2 x 2 replicas and a 4-slot
-                 scheduler, previews, ``router._main`` in process, and
+                 bursty trace through 2 x 2 replicas, previews,
+                 ``router._main`` in process, and
                  ``serve_diffusion --replicas 2`` in process at full width
                  with a bank, an SLO and previews;
 10. autotune   — the compiled-path kernel policy at full width: the
@@ -138,7 +138,7 @@ no result line):
                  cache against the bf16 one (dense, moe); prefill(T) + one
                  decode step against prefill(T + 1) with zeroed-KV and
                  (hymba) zeroed-SSM-state controls; profiles of prefill
-                 and 16 decode steps.
+                 and 4 decode steps.
 17. train      — LM training through ``launch.train.build`` and
                  ``train.make_train_step`` (AdamW on
                  ``linear_warmup_cosine``, remat on, PSSA and TIPS as
@@ -149,15 +149,25 @@ no result line):
                  parameters under ``no_grad``, (c) the fourth loss on one
                  batch repeated below the first; qwen2-moe-a2.7b at its
                  published widths, depth cut to 2 of 24 layers, batch 4 x
-                 1024: (a) and a finite aux above 0; at hymba's widths cut
-                 to 4 layers: (d) a ``Trainer`` run killed at step 3 and
-                 resumed in a fresh one ends where an uninterrupted run
-                 ends (bit for bit, or within ten times the gap between
-                 two uninterrupted runs), (e) gradients with remat equal
-                 those without, (f) the ``ssd_scan`` kernel route refuses
-                 to train; s a step, tokens/s, peak GB, the busy share and
-                 the five largest device ops of one step, the model-FLOP
-                 share of 989 TFLOP/s.
+                 1024: (a) and a finite aux above 0; at qwen2-moe's 2
+                 layers and at hymba's widths cut to 4 layers: (d) a
+                 ``Trainer`` run killed at step 3 and resumed in a fresh
+                 one ends where an uninterrupted run ends (bit for bit;
+                 for hymba, or within ten times the gap between two
+                 uninterrupted runs), (e) gradients with remat equal those
+                 without (the same); hymba's (f) the ``ssd_scan`` kernel
+                 route refuses to train; s a step, tokens/s, peak GB, the
+                 busy share and the five largest device ops of one step,
+                 the model-FLOP share of 989 TFLOP/s.
+18. examples   — the five example twins (``repro_torch.examples``), each
+                 ``main()`` in process on the card: ``quickstart`` (the
+                 DBSC kernel's integers equal its oracle; one bit-slice
+                 and one cross-attention launch), ``tips_visualization``,
+                 ``generate_image`` at its defaults (BK-SDM-Tiny at full
+                 width, 5 steps, 9 / 9 / 18 launches a step; its
+                 ``mj_per_iter_with_ema`` against the reference attention
+                 + DBSC within 1e-6), ``serve_lm`` at its defaults and
+                 ``train_lm`` for 3 steps; their printed lines.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
@@ -293,8 +303,8 @@ CARRY_RTOL = 1e-1
 # lm: llama3-8b, qwen2-moe-a2.7b and hymba-1.5b at their published
 # geometry (random weights from a seed): batch 4, a 2048-token prompt
 # (past hymba's 1024-token window, so its ring buffers wrap), 32 greedy
-# tokens; profiles of prefill and of 16 decode steps
-LM_BATCH, LM_PROMPT, LM_NEW, LM_PROFILE_STEPS = 4, 2048, 32, 16
+# tokens; profiles of prefill and of 4 decode steps
+LM_BATCH, LM_PROMPT, LM_NEW, LM_PROFILE_STEPS = 4, 2048, 32, 4
 LM_GEOMETRY = {
     "llama3-8b": dict(
         family="dense", num_layers=32, d_model=4096, num_heads=32,
@@ -1482,19 +1492,96 @@ def _max_diff(torch, a_tree, b_tree) -> float:
                                tree_util.leaves(b_tree)))
 
 
+def _resume_and_remat(torch, name, cfg, ds, opt, exact: bool):
+    """The train phase's (d) and (e) for one model; returns the
+    parameters after TRAIN_STEPS uninterrupted steps.
+
+    (d) two uninterrupted runs of TRAIN_STEPS from ``Trainer``'s fresh
+    state (its own step function, the batches it takes), then a
+    ``Trainer`` killed at step 3 (checkpoints every 2 steps, under $TMPDIR,
+    removed afterwards) and resumed in a fresh one: its final state
+    against the first run's.  (e) gradients with remat against without,
+    and two runs without.  ``exact``: both bit for bit; otherwise within
+    ten times the run-to-run gap.
+    """
+    import shutil
+    import tempfile
+
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.trainer import _value_and_grad
+
+    layers = f"{cfg.num_layers} layers, {TRAIN_BATCH} x {ds.seq_len}"
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        def tc(sub, every):
+            return TrainConfig(steps=TRAIN_STEPS, checkpoint_every=every,
+                               log_every=1, checkpoint_dir=os.path.join(
+                                   root, sub))
+
+        class Killed(RuntimeError):
+            pass
+
+        def killer(i):
+            if i == 3:
+                raise Killed()
+
+        def uninterrupted(trainer):
+            st = trainer._fresh_state(
+                torch.Generator(device="cuda").manual_seed(0))
+            for i in range(TRAIN_STEPS):
+                st, _ = trainer.step_fn(st, ds.batch_at(i, device="cuda"))
+            return st
+        t1 = Trainer(cfg, ds, opt, tc("clean", 1000), device="cuda")
+        clean = uninterrupted(t1)
+        st = uninterrupted(t1)
+        gap = _max_diff(torch, clean, st)
+        del st
+        try:
+            Trainer(cfg, ds, opt, tc("killed", 2), failure_hook=killer,
+                    device="cuda").run()
+            require(False, f"{name}: (d) the failure hook did not fire")
+        except Killed:
+            pass
+        resumed, hist = Trainer(cfg, ds, opt, tc("killed", 2),
+                                device="cuda").run()
+        require(hist[0][0] == 3, f"{name}: (d) resumed at {hist[0][0]}")
+        diff = _max_diff(torch, resumed, clean)
+        bound = 0.0 if exact else 10 * gap
+        print(f"  {name} ({layers}): (d) two uninterrupted runs differ by "
+              f"{gap!r}; killed at step 3 and resumed against uninterrupted "
+              f"{diff!r} (limit {'bit for bit' if bound == 0 else bound})")
+        require(gap <= bound, f"{name}: (d) two runs differ by {gap}")
+        require(diff <= bound, f"{name}: (d) resumed {diff} > {bound}")
+        params = clean[0]
+        del clean, resumed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    batch = ds.batch_at(0, device="cuda")
+    g_on = _value_and_grad(params, batch, cfg)[1]
+    g_off = _value_and_grad(params, batch, cfg, remat=False)[1]
+    g_off2 = _value_and_grad(params, batch, cfg, remat=False)[1]
+    g_gap = _max_diff(torch, g_off, g_off2)
+    g_diff = _max_diff(torch, g_on, g_off)
+    bound = 0.0 if exact else 10 * g_gap
+    print(f"  {name}: (e) gradients, remat against none {g_diff!r}; two "
+          f"runs without remat {g_gap!r} (limit "
+          f"{'bit for bit' if bound == 0 else bound})")
+    require(g_gap <= bound, f"{name}: (e) two runs differ by {g_gap}")
+    require(g_diff <= bound, f"{name}: (e) remat moved the gradients")
+    return params
+
+
 @phase("train")
 def train_phase(torch):
     """LM training at published widths: hymba-1.5b whole, qwen2-moe-a2.7b
     cut to 2 layers, and hymba cut to 4 layers for the Trainer's fault
     tolerance, remat and the ssd_scan guard (docstring, item 17)."""
     import gc
-    import shutil
-    import tempfile
 
     from repro_torch.kernels import runtime
     from repro_torch.launch.train import build
     from repro_torch.models import transformer as T
-    from repro_torch.train import TrainConfig, Trainer, make_train_step
+    from repro_torch.train import make_train_step
     from repro_torch.train.trainer import _value_and_grad
     from repro_torch.tree import leaves
 
@@ -1601,64 +1688,24 @@ def train_phase(torch):
     free()
     print(f"  {name} in {time.perf_counter() - t_model:.2f} s")
 
-    # hymba at its published widths, 4 layers: (d), (e), (f)
+    # (d), (e) at qwen2-moe's widths cut to 2 layers, bit for bit (its
+    # combine adds in a fixed order), then at hymba's cut to 4; (f)
+    name = "qwen2-moe-a2.7b"
+    t_model = time.perf_counter()
+    cfg, ds, opt, _ = build(name, TRAIN_STEPS, TRAIN_BATCH, TRAIN_MOE_SEQ,
+                            TRAIN_LR)
+    _resume_and_remat(torch, name, cfg.scaled(num_layers=TRAIN_MOE_LAYERS),
+                      ds, opt, exact=True)
+    free()
+    print(f"  {name} ({TRAIN_MOE_LAYERS} layers) (d), (e) in "
+          f"{time.perf_counter() - t_model:.2f} s")
     name = "hymba-1.5b"
     t_model = time.perf_counter()
     cfg, ds, opt, _ = build(name, TRAIN_STEPS, TRAIN_BATCH, TRAIN_FT_SEQ,
                             TRAIN_LR)
     cfg = cfg.scaled(num_layers=TRAIN_FT_LAYERS)
-    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    try:
-        def tc(sub, every):
-            return TrainConfig(steps=TRAIN_STEPS, checkpoint_every=every,
-                               log_every=1, checkpoint_dir=os.path.join(
-                                   root, sub))
-
-        class Killed(RuntimeError):
-            pass
-
-        def killer(i):
-            if i == 3:
-                raise Killed()
-        # two uninterrupted runs: the card's run-to-run gap
-        t1 = Trainer(cfg, ds, opt, tc("clean", 1000), device="cuda")
-        clean, _ = t1.run()
-        st = t1._fresh_state(torch.Generator(device="cuda").manual_seed(0))
-        for i in range(TRAIN_STEPS):
-            st, _ = t1.step_fn(st, ds.batch_at(i, device="cuda"))
-        gap = _max_diff(torch, clean, st)
-        del st
-        try:
-            Trainer(cfg, ds, opt, tc("killed", 2), failure_hook=killer,
-                    device="cuda").run()
-            require(False, f"{name}: (d) the failure hook did not fire")
-        except Killed:
-            pass
-        resumed, hist = Trainer(cfg, ds, opt, tc("killed", 2),
-                                device="cuda").run()
-        require(hist[0][0] == 3, f"{name}: (d) resumed at {hist[0][0]}")
-        diff = _max_diff(torch, resumed, clean)
-        bound = 10 * gap
-        print(f"  {name} ({TRAIN_FT_LAYERS} layers, {TRAIN_BATCH} x "
-              f"{TRAIN_FT_SEQ}): (d) two uninterrupted runs differ by "
-              f"{gap!r}; killed at step 3 and resumed against uninterrupted "
-              f"{diff!r} (limit {'bit for bit' if gap == 0 else bound})")
-        require(diff <= bound, f"{name}: (d) resumed {diff} > {bound}")
-        params = clean[0]
-        del clean, resumed
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    params = _resume_and_remat(torch, name, cfg, ds, opt, exact=False)
     batch = ds.batch_at(0, device="cuda")
-    g_on = _value_and_grad(params, batch, cfg)[1]
-    g_off = _value_and_grad(params, batch, cfg, remat=False)[1]
-    g_off2 = _value_and_grad(params, batch, cfg, remat=False)[1]
-    g_gap = _max_diff(torch, g_off, g_off2)
-    g_diff = _max_diff(torch, g_on, g_off)
-    print(f"  {name}: (e) gradients, remat against none {g_diff!r}; two "
-          f"runs without remat {g_gap!r} (limit "
-          f"{'bit for bit' if g_gap == 0 else 10 * g_gap})")
-    require(g_diff <= 10 * g_gap, f"{name}: (e) remat moved the gradients")
-    del g_on, g_off, g_off2
     kcfg = cfg.scaled(use_ssd_kernel=True)
     before = runtime.launch_counts().get("ssd_scan", 0)
     try:
@@ -1679,6 +1726,166 @@ def train_phase(torch):
     free()
     print(f"  {name} ({TRAIN_FT_LAYERS} layers) in "
           f"{time.perf_counter() - t_model:.2f} s")
+
+
+# ---------------------------------------------------------------------------
+# examples: the example twins in this process
+# ---------------------------------------------------------------------------
+EXAMPLE_STEPS = 5           # generate_image's default --steps
+TRAIN_LM_ARGS = ("--steps", "3", "--seq", "64")
+
+
+def _run_example(torch, mod, argv, label, show=None):
+    """``mod.main(argv)`` in this process with the launch counters set to 0
+    just before: (its result, the lines it printed, the launches).  An
+    exception or a ``SystemExit`` (argparse) fails the phase; the lines
+    ``show`` selects (all by default) are echoed, indented."""
+    import io
+
+    from repro_torch.kernels import runtime
+    buf = io.StringIO()
+    runtime.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = mod.main(list(argv))
+    except SystemExit as exc:
+        raise PhaseError(f"{label}: exited with {exc.code!r}:\n"
+                         f"{buf.getvalue()}") from None
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = runtime.launch_counts()
+    lines = buf.getvalue().splitlines()
+    print(f"  {label} in {dt:.2f} s, launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    for line in (lines if show is None else show(lines)):
+        print(f"    | {line}")
+    return res, lines, counts
+
+
+def _only(counts, want: dict, label: str) -> None:
+    """Every kernel's launches equal ``want``'s (0 where it names none)."""
+    got = {k: v for k, v in counts.items() if v}
+    want = {k: v for k, v in want.items() if v}
+    require(got == want, f"{label}: launches {got}, expected {want}")
+
+
+@phase("examples")
+def examples_phase(torch):
+    """The five example twins (``repro_torch.examples``), each ``main()``
+    in this process on the card by default:
+
+    (a) ``quickstart`` whole: its lines, the PSSA round trip lossless, the
+        DBSC kernel's int32 accumulators equal to the twin's int64 oracle
+        (``kernel vs oracle max diff: 0.00e+00``), one launch each of
+        ``bitslice_matmul`` and ``cross_attention_tips``, none other;
+    (b) ``tips_visualization`` whole: its lines, a low-precision ratio in
+        (0, 1), neighbour agreement above 85 % (the twin asserts it); no
+        launch;
+    (c) ``generate_image`` at its defaults (BK-SDM-Tiny at full width, 5
+        steps, guidance 1.0, the main path's kernels): a finite (1, 512,
+        512, 3) image, the ledger lines, 9 / 9 / 18 launches a step; then
+        on the reference attention + DBSC (``--kernels ffn=dbsc``, the
+        parity phase's DBSC reference): ``mj_per_iter_with_ema`` within
+        LEDGER_RTOL;
+    (d) ``serve_lm`` at its defaults (llama3-8b's smoke geometry, batch 4,
+        a 24-token prompt, 16 tokens): its lines, 16 tokens a row in the
+        vocabulary, a finite DBSC tile; one ``bitslice_matmul`` launch;
+    (e) ``train_lm`` (the ~100M llama) with TRAIN_LM_ARGS and a checkpoint
+        dir of its own under $TMPDIR (removed afterwards): its lines, a
+        finite first loss, the final checkpoint written; no launch.
+    """
+    import shutil
+    import tempfile
+
+    from repro_torch.examples import (generate_image, quickstart, serve_lm,
+                                      tips_visualization, train_lm)
+
+    # (a)
+    res, lines, counts = _run_example(torch, quickstart, [],
+                                      "(a) quickstart")
+    require(lines[0] == "== PSSA: self-attention score compression ==" and
+            "  round-trip lossless: OK" in lines and
+            "== DBSC: bit-slice mixed-precision matmul (CUDA kernel) =="
+            in lines and lines[-1] == "done.", "(a) quickstart's lines")
+    require("  kernel vs oracle max diff: 0.00e+00" in lines and torch.equal(
+        res["acc"].to(torch.int64), res["oracle"]),
+        "(a) the DBSC kernel's integers differ from the oracle")
+    require(0 < res["ema_reduction"] < 1 and 0 < res["low_precision_ratio"]
+            < 1 and 0 < res["datapath_rel_err"] < 0.1,
+            f"(a) quickstart's numbers {res}")
+    _only(counts, {"bitslice_matmul": 1, "cross_attention_tips": 1},
+          "(a) quickstart")
+    print(f"  (a): the kernel's {res['acc'].numel()} int32 accumulators "
+          f"equal the int64 oracle's")
+
+    # (b)
+    res, lines, counts = _run_example(
+        torch, tips_visualization, [], "(b) tips_visualization",
+        show=lambda ls: ls[:2])
+    require(lines[0].startswith("important-pixel ratio: ") and lines[3] ==
+            "TIPS importance map (64x64, # = important = INT12):" and
+            len(lines) == 4 + 32, "(b) tips_visualization's lines")
+    require(0 < res["low_precision_ratio"] < 1,
+            f"(b) low-precision ratio {res['low_precision_ratio']}")
+    _only(counts, {}, "(b) tips_visualization")
+
+    # (c)
+    root = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        res, lines, counts = _run_example(
+            torch, generate_image, ["--out", os.path.join(root, "a.npy")],
+            "(c) generate_image")
+        require(res["image_shape"] == (1, 512, 512, 3) and res["finite"]
+                and res["latent_size"] == 64,
+                f"(c) image {res['image_shape']}, finite {res['finite']}")
+        require(lines[0].startswith("pipeline: model unet, latent 64^2, "
+                                    "sampler ddim x5, guidance 1.0, engine")
+                and lines[4] == "full-geometry (BK-SDM-Tiny, family=unet) "
+                "energy ledger:" and len(lines) == 5 + len(res["summary"]),
+                "(c) generate_image's lines")
+        _hold_launches(counts, EXAMPLE_STEPS, SLICE_ROUTE_PER_STEP,
+                       "(c) generate_image")
+        ref, _, _ = _run_example(
+            torch, generate_image, ["--kernels", "ffn=dbsc", "--out",
+                                    os.path.join(root, "b.npy")],
+            "(c) generate_image --kernels ffn=dbsc", show=lambda ls: [])
+        a = res["summary"]["mj_per_iter_with_ema"]
+        b = ref["summary"]["mj_per_iter_with_ema"]
+        gap = abs(a - b) / abs(b)
+        print(f"  (c): mj_per_iter_with_ema {a!r} (main path) against {b!r} "
+              f"(reference attention + dbsc): {gap:.3e} relative (limit "
+              f"{LEDGER_RTOL})")
+        require(gap <= LEDGER_RTOL, f"(c) mj_per_iter_with_ema {gap:.3e}")
+
+        # (d)
+        res, lines, counts = _run_example(torch, serve_lm, [],
+                                          "(d) serve_lm")
+        require(lines[0] == "serving llama3-8b-smoke (smoke geometry), "
+                "batch=4, prompt=24, decode=16" and
+                lines[2].startswith("decoded 16 tokens x 4 seqs in ") and
+                lines[4].startswith("DBSC bit-slice FFN tile: (4, ") and
+                lines[4].endswith("finite=True"), "(d) serve_lm's lines")
+        toks = res["tokens"]
+        require(toks.shape == (4, 16) and int(toks.min()) >= 0 and
+                int(toks.max()) < 512, f"(d) tokens {tuple(toks.shape)}")
+        _only(counts, {"bitslice_matmul": 1}, "(d) serve_lm")
+
+        # (e)
+        ckpt = os.path.join(root, "train_lm")
+        res, lines, counts = _run_example(
+            torch, train_lm, [*TRAIN_LM_ARGS, "--ckpt-dir", ckpt],
+            "(e) train_lm")
+        hist = res["history"]
+        require(lines[0] == "arch llama3-100m: 98.7 M params" and
+                lines[-1].startswith(f"loss {hist[0][1]:.3f} -> ") and
+                hist[0][0] == 1 and math.isfinite(hist[0][1]),
+                f"(e) train_lm's lines, history {hist}")
+        require(os.path.isdir(os.path.join(ckpt, "step_00000003")),
+                "(e) no checkpoint at step 3")
+        _only(counts, {}, "(e) train_lm")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1877,7 +2084,7 @@ def _hold_images(torch, eng, label, r, img, chunk, witness):
             f"> {move}")
 
 
-def _encode_cost(torch, eng, batches=(2, 4), reps=5):
+def _encode_cost(torch, eng, batches=(4,), reps=5):
     """What encoding prompts one row at a time (``DiffusionEngine._encode``,
     which slot serving's bit-equality needs) costs ``generate`` at batch B
     against encoding the batch in one call, as the engine did before:
@@ -2039,8 +2246,8 @@ def slots_phase(torch, eng):
         ``energy_report_from_accum`` equal to ``energy_report_multi`` of
         that call key for key.  Slice route (fused + DBSC); 9 / 9 / 18
         launches per slot_step, none in admit, decode or retire.  Then
-        what encoding prompts row by row costs ``generate`` at batch 2 and
-        4 (``_encode_cost``).
+        what encoding prompts row by row costs ``generate`` at batch 4
+        (``_encode_cost``).
     (b) A bank of ddim@25 and dpm2m@12, the dpm2m policy with a phase
         schedule on ``tips_scale`` only (so every step still runs the
         three kernels): three requests through 2 slots, the third
@@ -3529,11 +3736,11 @@ def router_phase(torch, eng):
         the tier it was served.
     (d) DiT-S/2 on the float FFN, 1 against 2 replicas: images, buckets
         and the energy key for key; 12 / 12 / 0 a replica step.
-    (e) Serving's bursty trace (2 at a time at SERVING_LOAD x a 4-slot
-        ``ContinuousScheduler``'s t = 0 images/s) through
-        ``ClusterRouter(eng, 2, 2)`` and ``ContinuousScheduler(eng, 4)``:
-        latency p50 / p95, queue wait p95, goodput, rounds, steps and
-        step walls, recorded only.
+    (e) Serving's bursty trace (2 at a time at SERVING_LOAD x (a)'s
+        2 x 2 t = 0 goodput) through ``ClusterRouter(eng, 2, 2)``: requests
+        arrive while the router runs; 9 / 9 / 0 launches a replica step,
+        none dropped; latency p50 / p95, queue wait p95, goodput, rounds,
+        steps and step walls recorded.
     (f) Previews every ROUTER_PREVIEW_EVERY rounds on one run: the count,
         the time to the first, every step in (0, 25); the images equal
         (a)'s; a preview of the final latents equals the image.
@@ -3560,8 +3767,7 @@ def router_phase(torch, eng):
     from repro_torch.launch import router as router_mod
     from repro_torch.launch import serve_diffusion
     from repro_torch.launch.router import ClusterRouter, RouterSLO
-    from repro_torch.launch.scheduler import (ContinuousScheduler,
-                                              apply_trace, bursty_trace,
+    from repro_torch.launch.scheduler import (apply_trace, bursty_trace,
                                               make_requests)
 
     dev, s = eng.device, ROUTER_SLOTS
@@ -3686,33 +3892,18 @@ def router_phase(torch, eng):
     _hold_across(torch, "(d) DiT", druns)
 
     # (e)
-    sched = ContinuousScheduler(float_eng, 4)
-    sched.warmup()
-    m0 = sched.run(requests(float_eng))
-    m0.pop("state")
-    _latency_line("(e) scheduler 4 slots, t = 0", m0, m0["mean_occupancy"])
-    print(f"  (e) t = 0: router 2 x 2 {m2['goodput_imgs_per_s']:.4f} "
-          f"images/s ({1e3 * m2['step_wall_s'] / m2['rounds']:.3f} ms a "
-          f"round) against scheduler 4 slots "
-          f"{m0['goodput_imgs_per_s']:.4f} ({m0['iter_wall_ms']:.3f} ms a "
-          f"step)")
-    rate = SERVING_LOAD * m0["goodput_imgs_per_s"]
+    rate = SERVING_LOAD * m2["goodput_imgs_per_s"]
     gap = SERVING_BURST / rate
     trace = bursty_trace(ROUTER_REQUESTS, SERVING_BURST, gap)
     print(f"  (e): {ROUTER_REQUESTS} requests, {SERVING_BURST} every "
-          f"{gap:.4f} s ({rate:.4f} images/s)")
+          f"{gap:.4f} s ({rate:.4f} images/s, {SERVING_LOAD} x (a)'s 2 x 2 "
+          f"t = 0 goodput)")
     router = ClusterRouter(float_eng, 2, s)
     mr, _ = _route_run(torch, router, apply_trace(requests(float_eng), trace),
                        "(e) router 2 x 2", FLOAT_ROUTE_PER_STEP)
     mr.pop("states")
-    ms = sched.run(apply_trace(requests(float_eng), trace))
-    ms.pop("state")
     _latency_line("(e) router 2 x 2", mr, mr["mean_occupancy"])
     _router_line("(e) router 2 x 2", mr)
-    _latency_line("(e) scheduler 4 slots", ms, ms["mean_occupancy"])
-    print(f"  (e) scheduler 4 slots: engine_steps {ms['engine_steps']}, "
-          f"step_wall_s {ms['step_wall_s']:.4f} ({ms['iter_wall_ms']:.3f} "
-          f"ms a step)")
 
     # (f)
     router = ClusterRouter(float_eng, 1, s, preview_every=ROUTER_PREVIEW_EVERY)
@@ -4629,6 +4820,7 @@ def main() -> int:
         serve_counts = serve_phase(torch)
         lm_phase(torch)
         train_phase(torch)
+        examples_phase(torch)
     except Exception as exc:                      # report, then fail
         import traceback
         traceback.print_exc()

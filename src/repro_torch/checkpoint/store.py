@@ -19,11 +19,16 @@ import hashlib
 import json
 import os
 import shutil
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from repro_torch import tree as tree_util
+
+# leaves written / read at once: each leaf's device copy, np.save / np.load
+# and digest let the GIL go, so threads overlap them
+_THREADS = min(8, os.cpu_count() or 1)
 
 
 def _to_numpy(leaf):
@@ -57,14 +62,19 @@ def save_checkpoint(directory: str, step: int, tree, meta: dict | None = None,
         "meta": meta or {},
         "leaves": [],
     }
-    for i, leaf in enumerate(flat):
+
+    def write(i, leaf):
         arr, logical_dtype = _to_numpy(leaf)
+        if not arr.flags.c_contiguous:
+            arr = arr.copy(order="C")
         np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr)
-        manifest["leaves"].append({
-            "shape": list(arr.shape),
-            "dtype": logical_dtype,
-            "sha256_16": hashlib.sha256(arr.tobytes()).hexdigest()[:16],
-        })
+        # the digest reads the array's buffer in place (no bytes copy)
+        return {"shape": list(arr.shape), "dtype": logical_dtype,
+                "sha256_16": hashlib.sha256(arr).hexdigest()[:16]}
+
+    # the manifest keeps the leaves' order, as loading keeps the tree's
+    with ThreadPoolExecutor(max_workers=_THREADS) as pool:
+        manifest["leaves"] = list(pool.map(write, range(len(flat)), flat))
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
     if os.path.exists(final):
@@ -108,8 +118,8 @@ def load_checkpoint(directory: str, step: int, like_tree):
     if manifest["num_leaves"] != len(flat):
         raise ValueError(f"tree structure changed: {manifest['num_leaves']} "
                          f"leaves stored, {len(flat)} expected")
-    out = []
-    for i, (leaf, spec) in enumerate(zip(flat, manifest["leaves"])):
+
+    def read(i, leaf, spec):
         arr = np.load(os.path.join(path, f"leaf_{i:05d}.npy"))
         want = tuple(getattr(leaf, "shape", np.shape(leaf)))
         if tuple(arr.shape) != want:
@@ -118,5 +128,9 @@ def load_checkpoint(directory: str, step: int, like_tree):
         if spec["dtype"] == "bfloat16":
             t = t.view(torch.int16).view(torch.bfloat16)
         dev = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
-        out.append(t.to(dev))
+        return t.to(dev)
+
+    with ThreadPoolExecutor(max_workers=_THREADS) as pool:
+        out = list(pool.map(read, range(len(flat)), flat,
+                            manifest["leaves"]))
     return tree_util.unflatten(like_tree, out), manifest["meta"]

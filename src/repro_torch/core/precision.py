@@ -105,14 +105,13 @@ def spot_cas(cas: torch.Tensor, policy: PrecisionPolicy,
              threshold_scale=None) -> tips.TIPSResult:
     """Importance spotting from head-averaged CAS (..., Tq) per the policy.
 
-    ``torch.quantile`` and ``jnp.quantile`` both interpolate linearly.
-    ``threshold_scale`` (a (B,) float32, phase-scheduled sampling) scales
-    each row's threshold, fixed or adaptive; None leaves both modes as
-    they were, op for op.
+    The adaptive quantile is ``tips.adaptive_threshold`` along the token
+    axis, bit for bit ``jnp.quantile``'s.  ``threshold_scale`` (a (B,)
+    float32, phase-scheduled sampling) scales each row's threshold, fixed
+    or adaptive; None leaves both modes as they were, op for op.
     """
     if policy.spotting == "adaptive":
-        thr = torch.quantile(cas, 1.0 - policy.target_low_ratio, dim=-1,
-                             keepdim=True)
+        thr = tips.adaptive_threshold(cas, policy.target_low_ratio, dim=-1)
     else:
         thr = policy.threshold
     if threshold_scale is not None:

@@ -51,6 +51,15 @@ def patch_xor(bm: torch.Tensor, patch: int) -> torch.Tensor:
     return torch.cat([r[..., :1, :], delta], dim=-2).reshape(bm.shape)
 
 
+def patch_unxor(delta_bm: torch.Tensor, patch: int) -> torch.Tensor:
+    """Inverse of :func:`patch_xor`: a cumulative XOR over the patch
+    columns (the parity of a running count, exact)."""
+    tk = delta_bm.shape[-1]
+    r = delta_bm.reshape(*delta_bm.shape[:-1], tk // patch, patch)
+    out = torch.remainder(torch.cumsum(r.to(torch.int32), dim=-2), 2) != 0
+    return out.reshape(delta_bm.shape)
+
+
 def index_bit_widths(tq: int, tk: int, patch: int) -> dict:
     """Static field widths of the three index formats (exact Python ints)."""
     return {
@@ -198,3 +207,18 @@ def stats_from_counters(nnz: torch.Tensor, ones_xor: torch.Tensor,
     shares the byte arithmetic with :func:`compress_stats`."""
     return _assemble_stats(nnz, ones_xor, (lead, tq, tk), patch, value_bits)
 
+
+def compress_decompress(sas: torch.Tensor, patch: int,
+                        threshold=DEFAULT_THRESHOLD) -> torch.Tensor:
+    """Losslessness check: prune -> bitmap -> XOR -> un-XOR -> re-mask.
+    Returns the reconstructed pruned SAS, equal to ``prune(sas)``."""
+    pruned = prune(sas, threshold)
+    bm2 = patch_unxor(patch_xor(bitmap(pruned), patch), patch)
+    return torch.where(bm2, pruned, torch.zeros((), dtype=pruned.dtype,
+                                                device=pruned.device))
+
+
+def ema_reduction(stats: PSSAStats) -> torch.Tensor:
+    """Fractional EMA reduction of the SAS against the uncompressed
+    baseline."""
+    return 1.0 - stats.bytes_pssa_total / stats.bytes_baseline

@@ -62,11 +62,74 @@ def quantize_weight(w: torch.Tensor, bits: int = WEIGHT_BITS,
     return QTensor(q, scale.to(torch.float32))
 
 
+def dequantize(q: QTensor) -> torch.Tensor:
+    return q.values.to(torch.float32) * q.scale
+
+
+def fake_quant_act(x: torch.Tensor, bits: int = ACT_BITS_HIGH,
+                   axis=None) -> torch.Tensor:
+    """Round-trip quantization (straight-through: the gradient is the
+    identity, as under JAX's ``stop_gradient``)."""
+    y = dequantize(quantize_act(x, bits, axis))
+    return x + (y - x).detach()
+
+
+def fake_quant_weight(w: torch.Tensor, bits: int = WEIGHT_BITS,
+                      axis=None) -> torch.Tensor:
+    y = dequantize(quantize_weight(w, bits, axis))
+    return w + (y - w).detach()
+
+
 def bitslice_split(x_int: torch.Tensor):
     """Split an unsigned INT12 payload into (hi, lo) 6-bit planes."""
     lo = torch.bitwise_and(x_int, SLICE_MASK)
     hi = torch.bitwise_right_shift(x_int, 6)
     return hi.to(torch.int32), lo.to(torch.int32)
+
+
+def wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wrap-around."""
+    x = torch.bitwise_and(x, 0xFFFFFFFF)
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Integer (M, K) @ (K, N) -> exact int64: int64 on the CPU, float64 on
+    the card (``torch.matmul`` has no integer kernel there; exact while
+    every partial sum stays below 2**53)."""
+    a, b = a.to(torch.int64), b.to(torch.int64)
+    if a.is_cuda:
+        return (a.double() @ b.double()).to(torch.int64)
+    return a @ b
+
+
+def bitslice_merge(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`bitslice_split`: ``(hi << 6) + lo``."""
+    return torch.bitwise_left_shift(hi, 6) + lo
+
+
+def quantized_matmul_reference(x: torch.Tensor, w: torch.Tensor,
+                               precision_bits: int = ACT_BITS_HIGH
+                               ) -> torch.Tensor:
+    """INT-exact ``x @ w`` on per-tensor scales: the integer oracle of the
+    DBSC datapath, float32 out.
+
+    The integer product is exact and wraps to int32 as XLA's does
+    (:func:`exact_matmul`, which the plain bit-slice kernel shares, not
+    its bit-slice decomposition, which this checks).  The rescale is the
+    jitted JAX package's: XLA reassociates ``acc * (sx * sw)`` with ``sx = ax *
+    (1/qx)`` and ``sw = aw * (1/qw)`` into ``acc * ((ax * aw) * c)``, the
+    constant ``c = (1/qx) * (1/qw)`` folded in float32.
+    """
+    qx = quantize_act(x, precision_bits)
+    qw = quantize_weight(w)
+    acc = wrap_int32(exact_matmul(qx.values, qw.values))
+    ax = torch.clamp_min(torch.clamp_min(x, 0.0).max(), 1e-8)
+    aw = torch.clamp_min(w.abs().max(), 1e-8)
+    f32 = torch.float32
+    c = (torch.tensor(1.0 / ((1 << precision_bits) - 1), dtype=f32)
+         * torch.tensor(1.0 / WEIGHT_MAX, dtype=f32)).item()
+    return acc.to(f32) * ((ax.to(f32) * aw.to(f32)) * c)
 
 
 def mixed_precision_quantize(x: torch.Tensor, important: torch.Tensor,

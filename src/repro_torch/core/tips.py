@@ -30,6 +30,55 @@ class TIPSRowCounters(NamedTuple):
     important: torch.Tensor
 
 
+def spot(cross_attn_probs: torch.Tensor, threshold: float,
+         cls_index: int = 0) -> TIPSResult:
+    """Spot important pixels from post-softmax cross-attention scores
+    (..., heads, Tq, Tk_text): the CLS score averaged over heads, and
+    important <=> CAS < threshold."""
+    cas = cross_attn_probs[..., :, cls_index].mean(dim=-2)     # (..., Tq)
+    important = cas < threshold
+    low_ratio = 1.0 - important.to(torch.float32).mean()
+    return TIPSResult(important=important, cas=cas,
+                      low_precision_ratio=low_ratio)
+
+
+def adaptive_threshold(cas: torch.Tensor, target_low_ratio: float,
+                       dim=None) -> torch.Tensor:
+    """Threshold that marks ``1 - target_low_ratio`` of the tokens
+    important: the linear quantile of the CAS over all of it (``dim``
+    None, a scalar) or along ``dim`` (kept as size 1), computed as the JAX
+    package's ``jnp.quantile`` is (``torch.quantile`` interpolates with
+    another rounding): float32 position and weights, then ``hi * w_high +
+    lo * w_low`` with the first product fused into the add, as XLA's CPU
+    backend contracts it (the exact product plus the rounded second one,
+    added in float64 and rounded once more).  NaN where a reduced CAS is
+    NaN."""
+    f32 = torch.float32
+    a, d = (cas.reshape(-1), 0) if dim is None else (cas, dim)
+    a = torch.sort(torch.where(torch.isnan(a).any(dim=d, keepdim=True),
+                               torch.full_like(a, float("nan")), a),
+                   dim=d).values
+    n = a.shape[d]
+    q = torch.tensor(1.0 - target_low_ratio, dtype=f32,
+                     device=a.device) * float(n - 1)
+    low, high = torch.floor(q), torch.ceil(q)
+    w_high = q - low
+    w_low = 1.0 - w_high
+    lo = a.index_select(d, low.clamp(0, n - 1).to(torch.int64).reshape(1))
+    hi = a.index_select(d, high.clamp(0, n - 1).to(torch.int64).reshape(1))
+    fused = (hi.to(torch.float64) * w_high.to(torch.float64)
+             + (lo.to(f32) * w_low).to(torch.float64))
+    out = fused.to(f32).to(cas.dtype)
+    return out.reshape(()) if dim is None else out
+
+
+def tips_schedule(iteration, active_iters: int = TIPS_ACTIVE_ITERS
+                  ) -> torch.Tensor:
+    """True while TIPS may down-quantize (the first 20 of 25
+    iterations)."""
+    return torch.as_tensor(iteration) < active_iters
+
+
 def apply_precision_mask(x: torch.Tensor, important: torch.Tensor,
                          active=True) -> torch.Tensor:
     """Fake-quant an activation tensor per the TIPS mask.

@@ -21,19 +21,13 @@ from repro_torch.kernels.bitslice_matmul.ref import (bitslice_matmul_int8,
 QUANT_PATHS = ("model", "int8")
 
 
-def bitslice_matmul(x: torch.Tensor, w: torch.Tensor,
-                    important: torch.Tensor | None = None,
-                    dataflow: str = "weight_stationary",
-                    quant_path: str = "model") -> torch.Tensor:
-    """``x (M, K) @ w (K, N)`` through the DBSC integer datapath.
-
-    ``important``: bool (M,) TIPS mask; None -> every row INT12.
-    ``dataflow``: the DBSC stationary mode (the same integers either way).
-    ``quant_path``: ``"model"`` runs the integer matmul as the model's
-    datapath (the kernel on the card, its plain version on the CPU);
-    ``"int8"`` as ``ref.bitslice_matmul_int8``.  The accumulators are
-    bit-identical, so the float output is too.
-    """
+def bitslice_integers(x: torch.Tensor, w: torch.Tensor,
+                      important: torch.Tensor | None = None,
+                      dataflow: str = "weight_stationary",
+                      quant_path: str = "model"):
+    """The integer half of :func:`bitslice_matmul`: ``(acc, scale)``, the
+    (M, N) int32 accumulators of the quantized ``x @ w`` and the float32
+    scale that turns them into the output (``acc * scale``)."""
     if dataflow not in DATAFLOWS:
         raise ValueError(f"bitslice_matmul: dataflow={dataflow!r}, "
                          f"expected one of {tuple(DATAFLOWS)}")
@@ -58,4 +52,21 @@ def bitslice_matmul(x: torch.Tensor, w: torch.Tensor,
                                      dataflow=dataflow)
     else:
         acc = bitslice_matmul_ref(hi, lo, qw.values, prec)
-    return acc.to(torch.float32) * (qx.scale * qw.scale)
+    return acc, qx.scale * qw.scale
+
+
+def bitslice_matmul(x: torch.Tensor, w: torch.Tensor,
+                    important: torch.Tensor | None = None,
+                    dataflow: str = "weight_stationary",
+                    quant_path: str = "model") -> torch.Tensor:
+    """``x (M, K) @ w (K, N)`` through the DBSC integer datapath.
+
+    ``important``: bool (M,) TIPS mask; None -> every row INT12.
+    ``dataflow``: the DBSC stationary mode (the same integers either way).
+    ``quant_path``: ``"model"`` runs the integer matmul as the model's
+    datapath (the kernel on the card, its plain version on the CPU);
+    ``"int8"`` as ``ref.bitslice_matmul_int8``.  The accumulators are
+    bit-identical, so the float output is too.
+    """
+    acc, scale = bitslice_integers(x, w, important, dataflow, quant_path)
+    return acc.to(torch.float32) * scale

@@ -13,11 +13,7 @@ from __future__ import annotations
 
 import torch
 
-
-def wrap_int32(x: torch.Tensor) -> torch.Tensor:
-    """int64 -> int32 with two's-complement wrap-around."""
-    x = torch.bitwise_and(x, 0xFFFFFFFF)
-    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+from repro_torch.core.quant import exact_matmul, wrap_int32
 
 
 def bitslice_matmul_ref(x_hi: torch.Tensor, x_lo: torch.Tensor,
@@ -27,14 +23,8 @@ def bitslice_matmul_ref(x_hi: torch.Tensor, x_lo: torch.Tensor,
     ``prec`` 1 -> INT12 row (both slices), 0 -> INT6 row (high slice only).
     """
     lo = x_lo.to(torch.int64) * prec.to(torch.int64)
-    hi = x_hi.to(torch.int64)
-    wl = w.to(torch.int64)
-    if x_hi.is_cuda:
-        acc_hi = (hi.double() @ wl.double()).to(torch.int64)
-        acc_lo = (lo.double() @ wl.double()).to(torch.int64)
-    else:
-        acc_hi = hi @ wl
-        acc_lo = lo @ wl
+    acc_hi = exact_matmul(x_hi, w)
+    acc_lo = exact_matmul(lo, w)
     return wrap_int32(torch.bitwise_left_shift(acc_hi, 6) + acc_lo)
 
 

@@ -22,8 +22,9 @@ from repro_torch.diffusion.pipeline import PipelineConfig
 from repro_torch.diffusion.sampler import DDIMConfig
 
 
-def add_policy_args(ap):
-    """Register the shared policy flags on ``ap``.  Returns ``ap``."""
+def add_policy_args(ap, tiers: bool = True):
+    """Register the shared policy flags on ``ap``; ``tiers=False`` leaves
+    out ``--tiers`` (a CLI of one request has no bank).  Returns ``ap``."""
     ap.add_argument("--model", choices=("unet", "dit"), default="unet",
                     help="denoiser family (DESIGN.md §11): the BK-SDM "
                          "UNet (default) or the DiT-S/2 transformer, both "
@@ -52,12 +53,13 @@ def add_policy_args(ap):
                          "'dpm2m,steps=10,phases=detail_guard' (see "
                          "repro_torch.diffusion.solvers.SamplerPolicy); "
                          "empty = the config's DDIM schedule")
-    ap.add_argument("--tiers", nargs="+", default=None,
-                    help="mixed quality-tier serving bank: one "
-                         "SamplerPolicy spec per tier (e.g. --tiers "
-                         "draft balanced quality); requests cycle "
-                         "through the tiers round-robin inside one "
-                         "slot step")
+    if tiers:
+        ap.add_argument("--tiers", nargs="+", default=None,
+                        help="mixed quality-tier serving bank: one "
+                             "SamplerPolicy spec per tier (e.g. --tiers "
+                             "draft balanced quality); requests cycle "
+                             "through the tiers round-robin inside one "
+                             "slot step")
     return ap
 
 

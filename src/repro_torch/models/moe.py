@@ -61,6 +61,18 @@ def dispatch_positions(top_idx: torch.Tensor, num_experts: int, cap: int):
     return mypos, mypos < cap
 
 
+def combine(contrib: torch.Tensor, k: int) -> torch.Tensor:
+    """(n*k, d) assignment rows -> (n, d): token t sums rows t*k ..
+    t*k + k - 1 in rank order, rounding after each add in their dtype.
+    A fixed order, so the same bits on every run (a scatter-add by token
+    adds them with atomics on the card, in no fixed order)."""
+    parts = contrib.view(-1, k, contrib.shape[-1])
+    y = parts[:, 0]
+    for j in range(1, k):
+        y = y + parts[:, j]
+    return y
+
+
 def _local_moe(x, router, wg, wu, wd, *, cfg: ArchConfig,
                capacity_factor: float):
     """x: (N, d) tokens -> (y (N, d), aux load-balance loss)."""
@@ -76,15 +88,18 @@ def _local_moe(x, router, wg, wu, wd, *, cfg: ArchConfig,
     flat_e = top_idx.reshape(-1)
     flat_w = top_vals.reshape(-1)
     mypos, keep = dispatch_positions(top_idx, e, cap)
-    tok = torch.arange(n * k, device=x.device) // k
     safe_e = torch.where(keep, flat_e, 0)
     safe_p = torch.where(keep, mypos, cap - 1)
 
     # gather tokens into (e, cap, d) buffers: a scatter-add, in which a
-    # dropped assignment adds zeros at (0, cap - 1) (exact in any order)
+    # dropped assignment adds zeros at (0, cap - 1) (exact in any order).
+    # Assignment i is token i // k: each token's row repeated k times, by
+    # a broadcast whose backward is a sum over k in a fixed order (an
+    # index gather's backward would add the k rows with atomics)
+    x_rep = x[:, None].expand(n, k, d).reshape(n * k, d)
     xe = torch.zeros((e * cap, d), dtype=x.dtype, device=x.device)
     xe.index_add_(0, safe_e * cap + safe_p,
-                  torch.where(keep[:, None], x[tok], 0).to(x.dtype))
+                  torch.where(keep[:, None], x_rep, 0).to(x.dtype))
     xe = xe.view(e, cap, d)
 
     # expert FFN (SwiGLU)
@@ -92,10 +107,10 @@ def _local_moe(x, router, wg, wu, wd, *, cfg: ArchConfig,
     u = torch.einsum("ecd,edf->ecf", xe, wu)
     ye = torch.einsum("ecf,efd->ecd", silu(g) * u, wd)        # (e, cap, d)
 
-    # combine: weighted scatter-add into token rows, each contribution
-    # rounded to x's dtype first
+    # combine: each token's k weighted expert outputs, rounded to x's
+    # dtype first (a dropped slot contributes zeros)
     contrib = ye[safe_e, safe_p] * torch.where(keep, flat_w, 0.0)[:, None]
-    y = torch.zeros_like(x).index_add_(0, tok, contrib.to(x.dtype))
+    y = combine(contrib.to(x.dtype), k)
 
     me = gates.mean(dim=0)                                    # (e,)
     ce = F.one_hot(top_idx, e).to(torch.float32).mean(dim=(0, 1))

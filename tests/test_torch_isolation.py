@@ -13,6 +13,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = ("quickstart", "tips_visualization", "generate_image",
+            "serve_lm", "train_lm")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -20,6 +22,19 @@ import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import repro_torch.diffusion.engine
+import torch
+from repro_torch.core import pssa, quant, tips
+x = torch.rand(2, 4, 32, 32).softmax(-1)
+pssa.ema_reduction(pssa.compress_stats(x, 8))
+pssa.compress_decompress(x, 8)
+r = tips.spot(x, 0.05)
+tips.adaptive_threshold(r.cas, 0.448)
+tips.tips_schedule(3)
+quant.dequantize(quant.quantize_act(x))
+quant.fake_quant_act(x)
+quant.fake_quant_weight(x)
+quant.bitslice_merge(*quant.bitslice_split(quant.quantize_act(x).values))
+quant.quantized_matmul_reference(x[0, 0], x[0, 1])
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "repro"
              or n.startswith("repro."))
@@ -40,7 +55,8 @@ print("NEW", sorted(n for n in sys.modules
                                      "repro_torch.optim.",
                                      "repro_torch.data.",
                                      "repro_torch.checkpoint.",
-                                     "repro_torch.train."))))
+                                     "repro_torch.train.",
+                                     "repro_torch.examples."))))
 print("BAD", bad)
 """
 
@@ -71,7 +87,7 @@ def test_port_imports_neither_jax_nor_repro():
                 "kernels.autotune", "tree", "optim.adamw",
                 "optim.schedules", "optim.compression", "data.pipeline",
                 "checkpoint.store", "launch.model_flops", "train.trainer",
-                "launch.train"):
+                "launch.train", *(f"examples.{name}" for name in EXAMPLES)):
         assert f"repro_torch.{mod}" in new
 
 
@@ -169,6 +185,22 @@ def test_router_runs_on_the_card_unless_asked_for_the_cpu():
     for argv in ([], ["--check-identity"], ["--kernels", "reference"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             router._main(argv)
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_twins_run_on_the_card_unless_asked_for_the_cpu(name,
+                                                                tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    import importlib
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    argv = {"generate_image": ["--smoke", "--out",
+                               str(tmp_path / "image.npy")],
+            "train_lm": ["--smoke", "--steps", "1",
+                         "--ckpt-dir", str(tmp_path)]}.get(name, [])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)
+    assert not any(tmp_path.iterdir())
 
 
 def test_chip_smoke_fails_without_card_or_alone(tmp_path):

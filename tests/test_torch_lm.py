@@ -32,9 +32,9 @@ Tolerances (each with its reason):
   and a TIPS code on a rounding boundary can move by one INT6 step);
 * the MoE combine at top-4 in bfloat16: 2 bf16 ulps of the largest
   value, on any share of the values (XLA's scatter adds the four
-  contributions in bfloat16, rounding after each add, and
-  ``index_add_`` need not round at the same points; k = 2 is exact in
-  any order, 0 + a being exact);
+  contributions in bfloat16, rounding after each add, in an order of
+  its own; the port adds them in rank order, rounding after each add;
+  k = 2 is exact in any order, 0 + a being exact);
 * hybrid serving (float32, features off) against JAX ``forward`` on the
   prompt plus the decoded tokens: 1e-4 of the largest logit.  Both sides
   run the SSD scan in float32 (the port's decode recurrence against the
@@ -448,6 +448,55 @@ def test_moe_ffn_top4_bf16_within_bound(J):
     yt, _ = MOE.moe_ffn(xt, pt, pc)
     assert yt.dtype == torch.bfloat16
     _assert_bf16_close(yt, yj, share=None)
+
+
+@pytest.mark.parametrize("dtype,k", [("float32", 2), ("float32", 4),
+                                     ("bfloat16", 4), ("bfloat16", 1)])
+def test_moe_combine_matches_the_scatter_add(dtype, k):
+    """The rank-order combine against the ``index_add_`` scatter by token
+    it replaced (which on the CPU adds in index order, so rank order too),
+    a fifth of the slots dropped (zeros): within the MoE bounds of the
+    docstring (1e-5 in float32; 2 bf16 ulps of the largest value)."""
+    r = np.random.default_rng(21)
+    n, d = 48, 64
+    c = torch.from_numpy(r.standard_normal((n * k, d)).astype(np.float32))
+    c[torch.from_numpy(r.random(n * k) < 0.2)] = 0.0
+    c = c.to(getattr(torch, dtype))
+    tok = torch.arange(n * k) // k
+    old = torch.zeros((n, d), dtype=c.dtype).index_add_(0, tok, c)
+    new = MOE.combine(c, k)
+    assert new.shape == (n, d) and new.dtype == c.dtype
+    if dtype == "float32":
+        assert _rel(new, old) < F32_RTOL
+    else:
+        _assert_bf16_close(new, old, share=None)
+
+
+def test_moe_ffn_two_calls_bit_equal():
+    """Top-4 in bfloat16 with drops: two calls give the same output, aux
+    and input gradient bit for bit."""
+    pc = get_arch("qwen2-moe-a2.7b").smoke().scaled(
+        dtype="bfloat16", top_k=4, num_experts=8)
+    pt = MOE.init_moe_params(torch.Generator().manual_seed(5), pc,
+                             torch.bfloat16)
+    x0 = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (2, 32, 64)).astype(np.float32)).to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        x = x0.clone().requires_grad_()
+        y, aux = MOE.moe_ffn(x, pt, pc, capacity_factor=0.5)
+        (y.float().square().sum() + aux).backward()
+        runs.append((y.detach(), aux.detach(), x.grad))
+    keep = MOE.dispatch_positions(
+        torch.topk(torch.softmax(x0.reshape(-1, 64).float() @ pt["router"],
+                                 dim=-1), 4, dim=-1).indices, 8,
+        MOE.capacity(pc, 64, 0.5))[1]
+    assert not keep.all()
+
+    def bits(t):
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+    for a, b in zip(*runs):
+        assert torch.equal(bits(a), bits(b))
 
 
 # ----------------------------------------------------------------------------
