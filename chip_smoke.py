@@ -36,7 +36,14 @@ no result line):
 4. slice       — full-width BK-SDM-Tiny text-to-image, 25 DDIM steps at
                  guidance 7.5, through ``DiffusionEngine.generate`` on the
                  kernel route; launch counters must read 225/225/450;
-5. slots       — slot serving on the slice's engine: two requests through
+5. mesh        — data-parallel diffusion on a device mesh in one NCCL
+                 group of one rank: ``generate`` under ``make_data_mesh(1)``
+                 bit-equal to the unsharded engine (images, latents, every
+                 stats leaf; 9/9/18 launches a step), ``serve(mesh=)``'s
+                 ledger bit-equal to ``serve(mesh=None)`` with a padded tail,
+                 ``ClusterRouter(engines=[e0, e1])`` bit-equal to the
+                 shared-engine router, ``--mesh 2`` refused on one card;
+6. slots       — slot serving on the slice's engine: two requests through
                  2 slots bit-equal to ``generate`` at batch 2, ledger
                  headline key for key; a staggered ddim@25 + dpm2m@12 bank
                  drain of three requests, bit-equal to banked one-shot
@@ -45,7 +52,7 @@ no result line):
                  none in admit, decode or retire; s per slot_step at 1, 2
                  and 4 slots, each kernel against its plain version on a
                  4-slot step's inputs;
-6. slot_reuse  — slot serving under temporal reuse on the slice's
+7. slot_reuse  — slot serving under temporal reuse on the slice's
                  weights, on the fused attention + float FFN route and the
                  slice route: two requests through 2 and 4 slots, bit-equal
                  across the slot counts and to one-shot ``generate`` on the
@@ -56,14 +63,14 @@ no result line):
                  banked one-shot witnesses; 9/9/18 + 9 patch-delta
                  launches per step; s per slot_step under reuse beside
                  dense;
-7. dit         — DiT-S/2 (12 x 384, 6 heads of 64, a 16x16 token grid) at
+8. dit         — DiT-S/2 (12 x 384, 6 heads of 64, a 16x16 token grid) at
                  full width through the same engine: one-shot generate on
                  the slice route (300/300/600 launches, profile), the
                  kernels against their plain versions on the card over
                  two steps on three seeds, each kernel on one DiT step's
                  inputs (held and timed), a banked slot drain on 2 and 4
                  slots bit-equal to one-shot, temporal reuse;
-8. serving     — the serving front-end (``launch.scheduler``,
+9. serving     — the serving front-end (``launch.scheduler``,
                  ``launch.serve_diffusion``) at full width: eight
                  requests through ``ContinuousScheduler`` and
                  ``FixedBatchScheduler`` at 4 slots, at t = 0 on the slice
@@ -73,7 +80,7 @@ no result line):
                  goodput, occupancy; latents bit-equal to one-shot
                  witnesses at batch 4, the ledger against theirs); then
                  ``serve_diffusion.main`` in process at full width;
-9. router      — the cluster router (``launch.router``) at full width,
+10. router     — the cluster router (``launch.router``) at full width,
                  replicas of 2 slots: eight requests through 1, 2 and 4
                  replicas on the float FFN (images, merged int64 buckets
                  and energy equal across the counts and to ``generate`` at
@@ -86,7 +93,7 @@ no result line):
                  ``router._main`` in process, and
                  ``serve_diffusion --replicas 2`` in process at full width
                  with a bank, an SLO and previews;
-10. autotune   — the compiled-path kernel policy at full width: the
+11. autotune   — the compiled-path kernel policy at full width: the
                  committed autotune table validates and covers its
                  geometries; at each, every launch-knob candidate bit-equal
                  to the launch rule, the winner timed beside the rule;
@@ -98,26 +105,26 @@ no result line):
                  bit-slice kernel launch; ``serve_diffusion.main`` in
                  process at full width on ``--kernels autotuned`` and on
                  ``--kernels ffn=dbsc,ffn_quant=int8``;
-11. bitmap     — the PSXU entry point ``dispatch.patch_bitmap`` on the
+12. bitmap     — the PSXU entry point ``dispatch.patch_bitmap`` on the
                  pruned SAS of one cond row at res 64/32/16 (full-width
                  weights): kernel against plain bit for bit, per-row sums
                  of the counts against the PSSA popcount, 3 launches;
-12. temporal   — the slice with temporal patch reuse: threshold 0 equals
+13. temporal   — the slice with temporal patch reuse: threshold 0 equals
                  the dense latents (as far as a dense witness agrees with
                  itself), threshold 0.05 launches 225/225/450/225;
-13. edit       — img2img replay at capacity 1/8 against recorded base
+14. edit       — img2img replay at capacity 1/8 against recorded base
                  caches: the same input computes nothing and returns the
                  base latents; a re-noised window stays within the cap and
                  runs PSSA on T/8 queries; an a-priori window runs no
                  patch delta;
-14. parity     — two full-width steps from the same latents, route against
+15. parity     — two full-width steps from the same latents, route against
                  route: the reference policy against the fused attention
                  kernels, then reference attention + DBSC against the
                  slice's route (fused + DBSC) on three seeds, then the
                  reference route against the fused route with temporal
                  reuse; latents, ledger headlines and per-layer PSSA and
                  reuse counters must agree within the limits below.
-15. serve      — mamba2-130m at full width (random weights from a seed)
+16. serve      — mamba2-130m at full width (random weights from a seed)
                  through ``repro_torch.launch.serve.serve``: batch 4, a
                  4096-token prompt, 64 greedy tokens, prefill's scan on the
                  ``ssd_scan`` kernel (24 launches, none in decode); the
@@ -128,7 +135,7 @@ no result line):
                  decode step against prefill(T + 1) in float32 and bf16,
                  with a zeroed-state control; profiles of prefill and
                  decode.
-16. lm         — llama3-8b (dense), qwen2-moe-a2.7b (moe) and hymba-1.5b
+17. lm         — llama3-8b (dense), qwen2-moe-a2.7b (moe) and hymba-1.5b
                  (hybrid) at their published geometry, one at a time,
                  through ``launch.serve.serve``: batch 4, a 2048-token
                  prompt (hymba's rings wrap), 32 greedy tokens; hymba's
@@ -139,7 +146,7 @@ no result line):
                  decode step against prefill(T + 1) with zeroed-KV and
                  (hymba) zeroed-SSM-state controls; profiles of prefill
                  and 4 decode steps.
-17. train      — LM training through ``launch.train.build`` and
+18. train      — LM training through ``launch.train.build`` and
                  ``train.make_train_step`` (AdamW on
                  ``linear_warmup_cosine``, remat on, PSSA and TIPS as
                  configured, bf16): hymba-1.5b at its published geometry,
@@ -149,8 +156,8 @@ no result line):
                  parameters under ``no_grad``, (c) the fourth loss on one
                  batch repeated below the first; qwen2-moe-a2.7b at its
                  published widths, depth cut to 2 of 24 layers, batch 4 x
-                 1024: (a) and a finite aux above 0; at qwen2-moe's 2
-                 layers and at hymba's widths cut to 4 layers: (d) a
+                 1024: (a) and a finite aux above 0; at qwen2-moe's
+                 widths cut to 1 layer and at hymba's cut to 4: (d) a
                  ``Trainer`` run killed at step 3 and resumed in a fresh
                  one ends where an uninterrupted run ends (bit for bit;
                  for hymba, or within ten times the gap between two
@@ -159,7 +166,7 @@ no result line):
                  route refuses to train; s a step, tokens/s, peak GB, the
                  busy share and the five largest device ops of one step,
                  the model-FLOP share of 989 TFLOP/s.
-18. examples   — the five example twins (``repro_torch.examples``), each
+19. examples   — the five example twins (``repro_torch.examples``), each
                  ``main()`` in process on the card: ``quickstart`` (the
                  DBSC kernel's integers equal its oracle; one bit-slice
                  and one cross-attention launch), ``tips_visualization``,
@@ -360,6 +367,7 @@ LM_INT8_RTOL = 0.2
 # logsumexp and mean over 8192 tokens).
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
 TRAIN_MOE_SEQ, TRAIN_MOE_LAYERS = 1024, 2
+TRAIN_MOE_FT_LAYERS = 1     # (d), (e): qwen2-moe's depth for resume, remat
 TRAIN_FT_LAYERS, TRAIN_FT_SEQ = 4, 1024
 TRAIN_LR, TRAIN_DESCENT_LR = 3e-4, 1e-5
 TRAIN_LOSS_RTOL = 1e-5
@@ -1574,8 +1582,9 @@ def _resume_and_remat(torch, name, cfg, ds, opt, exact: bool):
 @phase("train")
 def train_phase(torch):
     """LM training at published widths: hymba-1.5b whole, qwen2-moe-a2.7b
-    cut to 2 layers, and hymba cut to 4 layers for the Trainer's fault
-    tolerance, remat and the ssd_scan guard (docstring, item 17)."""
+    cut to 2 layers (1 for the Trainer's fault tolerance and remat), and
+    hymba cut to 4 layers for those and the ssd_scan guard (docstring,
+    item 18)."""
     import gc
 
     from repro_torch.kernels import runtime
@@ -1688,16 +1697,18 @@ def train_phase(torch):
     free()
     print(f"  {name} in {time.perf_counter() - t_model:.2f} s")
 
-    # (d), (e) at qwen2-moe's widths cut to 2 layers, bit for bit (its
-    # combine adds in a fixed order), then at hymba's cut to 4; (f)
+    # (d), (e) at qwen2-moe's widths cut to TRAIN_MOE_FT_LAYERS, bit for
+    # bit (its combine adds in a fixed order), then at hymba's cut to 4;
+    # (f)
     name = "qwen2-moe-a2.7b"
     t_model = time.perf_counter()
     cfg, ds, opt, _ = build(name, TRAIN_STEPS, TRAIN_BATCH, TRAIN_MOE_SEQ,
                             TRAIN_LR)
-    _resume_and_remat(torch, name, cfg.scaled(num_layers=TRAIN_MOE_LAYERS),
-                      ds, opt, exact=True)
+    _resume_and_remat(torch, name,
+                      cfg.scaled(num_layers=TRAIN_MOE_FT_LAYERS), ds, opt,
+                      exact=True)
     free()
-    print(f"  {name} ({TRAIN_MOE_LAYERS} layers) (d), (e) in "
+    print(f"  {name} ({TRAIN_MOE_FT_LAYERS} layer) (d), (e) in "
           f"{time.perf_counter() - t_model:.2f} s")
     name = "hymba-1.5b"
     t_model = time.perf_counter()
@@ -1948,6 +1959,143 @@ def slice_phase(torch):
         return eng.last_wall_s
     profile_breakdown(torch, generate, "slice")
     return eng, counts
+
+
+MESH_STEPS = 5              # (b), (c): DDIM steps of the served requests
+
+
+def _same_outputs(torch, label, a, b) -> None:
+    """Images, latents and every stats leaf bit-equal (dtype and shape
+    too)."""
+    from repro_torch.tree import leaves
+    require(torch.equal(a.images, b.images), f"{label}: images differ")
+    require(torch.equal(a.latents, b.latents), f"{label}: latents differ")
+    la = leaves([a.stats.pssa, a.stats.tips, a.stats.reuse])
+    lb = leaves([b.stats.pssa, b.stats.tips, b.stats.reuse])
+    require(len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(la, lb)), f"{label}: a stats leaf differs")
+    print(f"  {label}: images, latents and {len(la)} stats leaves bit-equal")
+
+
+@phase("mesh")
+def mesh_phase(torch, eng):
+    """Data-parallel diffusion on a device mesh (``launch.mesh``) at
+    BK-SDM-Tiny's full width, on the slice's weights, inside one NCCL group
+    of one rank (a ``FileStore`` in a temporary directory), destroyed at
+    the end.  The card holds only degree 1: NCCL takes one rank a device,
+    and this host has one card (degree 2 is held on the CPU under gloo,
+    ``tests/test_torch_mesh.py``).
+
+    (a) ``generate`` under ``make_data_mesh(1)`` against the unsharded
+        engine: the same weights, tokens and latents, batch 1, guidance
+        7.5, 25 steps on the slice route: images, latents and every stats
+        leaf bit-equal (the JAX package's dp = 1 contract); 9 / 9 / 18
+        launches a step under the mesh.
+    (b) ``serve(mesh=make_data_mesh(1))`` against ``serve(mesh=None)``:
+        3 requests at micro-batch 2 (a padded tail), MESH_STEPS steps, the
+        slice route: the ledger bit-equal, the JAX package's ``mesh``
+        dict; 9 / 9 / 18 launches a step, the warm-ups included.
+    (c) ``ClusterRouter(engines=[e0, e1])`` against ``ClusterRouter(e0,
+        2, 2)``: two engines on one set of weights, 2 replicas x 2 slots, 4
+        requests at t = 0, MESH_STEPS steps, the slice route: images and
+        the merged int64 buckets and energy bit-equal; 9 / 9 / 18 launches
+        a replica step.
+    (d) ``serve_diffusion.main(["--mesh", "2"])`` raises
+        ``make_data_mesh``'s message on this one-card host.
+    """
+    from repro_torch.diffusion.engine import DiffusionEngine
+    from repro_torch.diffusion.pipeline import merge_ledger_accums
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve_diffusion
+    from repro_torch.launch.router import ClusterRouter
+    from repro_torch.launch.scheduler import make_requests
+
+    cfg = eng.cfg
+    params = {"text": eng.text_params, "unet": eng.unet_params,
+              "vae": eng.vae_params}
+    short = dataclasses.replace(cfg, ddim=dataclasses.replace(
+        cfg.ddim, num_inference_steps=MESH_STEPS,
+        tips_active_iters=MESH_STEPS - 1))
+    with mesh_mod.process_group(device="cuda"):
+        mesh = mesh_mod.make_data_mesh(1)
+        print(f"  NCCL group of {torch.distributed.get_world_size()}; mesh "
+              f"{mesh_mod.mesh_shape(mesh)}, signature "
+              f"{mesh_mod.mesh_signature(mesh)}")
+
+        # (a)
+        meng = DiffusionEngine(cfg, params=params, mesh=mesh)
+        toks, un = _tokens(torch, cfg, 7)
+        lat = eng.init_latents(1, torch.Generator(device="cuda")
+                               .manual_seed(8))
+        ref = eng.generate(toks, uncond_tokens=un, latents=lat.clone())
+        runtime.reset_launch_counts()
+        out = meng.generate(toks, uncond_tokens=un, latents=lat.clone())
+        _hold_launches(runtime.launch_counts(), cfg.ddim.num_inference_steps,
+                       SLICE_ROUTE_PER_STEP, "(a) generate under the mesh")
+        _same_outputs(torch, "(a) make_data_mesh(1) against unsharded", out,
+                      ref)
+        print(f"  (a) s/image {meng.last_wall_s:.4f} under the mesh, "
+              f"{eng.last_wall_s:.4f} unsharded")
+
+        # (b)
+        reqs = serve_diffusion.synthetic_requests(short, 3)
+        want = serve_diffusion.serve(short, reqs, 2, ledger=True)
+        runtime.reset_launch_counts()
+        got = serve_diffusion.serve(short, reqs, 2, ledger=True, mesh=mesh)
+        _hold_launches(runtime.launch_counts(), 4 * MESH_STEPS,
+                       SLICE_ROUTE_PER_STEP,
+                       "(b) serve under the mesh (2 warm-ups, 2 calls)")
+        require(got["mesh"] == {"dp": 1, "shape": {"data": 1, "model": 1},
+                                "devices": 1} and want["mesh"] is None,
+                f"(b) mesh {got['mesh']} / {want['mesh']}")
+        require(got["micro_batch"] == 2 and got["engine_calls"] == 2
+                and got["padded_rows"] == 1, f"(b) {got}")
+        for k in ("energy", "tips_low_ratio_per_iter",
+                  "tips_workload_low_fraction", "reuse_ratio_per_iter"):
+            require(got[k] == want[k], f"(b) {k}: {got[k]} != {want[k]}")
+        print(f"  (b) serve: ledger bit-equal under the mesh "
+              f"(mj_per_iter_with_ema "
+              f"{got['energy']['mj_per_iter_with_ema']!r}); mesh "
+              f"{json.dumps(got['mesh'])}; imgs/s {got['imgs_per_s']:.4f} "
+              f"against {want['imgs_per_s']:.4f}")
+
+        # (c)
+        e0 = DiffusionEngine(short, params=params)
+        e1 = DiffusionEngine(short, params=params)
+        runs = {}
+        for label, engines in (("shared engine", None),
+                               ("engines=[e0, e1]", [e0, e1])):
+            router = ClusterRouter(e0, 2, 2, engines=engines)
+            router.warmup()
+            reqs = make_requests(short, 4, seed=41)
+            m, _ = _route_run(torch, router, reqs, f"(c) {label}",
+                              SLICE_ROUTE_PER_STEP)
+            runs[label] = (m, reqs)
+        (m0, r0), (m1, r1) = runs.values()
+        require(all(a.image.tobytes() == b.image.tobytes()
+                    for a, b in zip(r0, r1)), "(c) images differ")
+        a0 = merge_ledger_accums(st.accum for st in m0["states"])
+        a1 = merge_ledger_accums(st.accum for st in m1["states"])
+        require(all(torch.equal(getattr(a0, f.name), getattr(a1, f.name))
+                    for f in dataclasses.fields(a0)), "(c) buckets differ")
+        require(m0["energy"] == m1["energy"], "(c) energy differs")
+        print(f"  (c) router: 4 images, the merged int64 buckets (6 planes) "
+              f"and the energy bit-equal with one engine a replica")
+
+        # (d)
+        try:
+            serve_diffusion.main(["--mesh", "2", "--smoke"])
+        except ValueError as e:
+            msg = str(e)
+        else:
+            msg = None
+        require(msg == "--mesh 2 needs 2 devices, have 1",
+                f"(d) --mesh 2 on one card: {msg!r}")
+        print(f"  (d) serve_diffusion --mesh 2 on one card: {msg}")
+    require(not torch.distributed.is_initialized(), "the group outlived "
+            "the phase")
 
 
 def _slot_request(torch, eng, seed):
@@ -3616,6 +3764,7 @@ def serving_phase(torch, eng):
 # router: the cluster router at full width
 # ---------------------------------------------------------------------------
 ROUTER_REQUESTS, ROUTER_SLOTS = 8, 2
+ROUTER_TRACE_REQUESTS = 4   # (e)'s bursty trace
 ROUTER_REPLICAS = (1, 2, 4)
 ROUTER_BANK = ("ddim,steps=25", "ddim,steps=12")
 ROUTER_DEADLINE = 37        # rounds: one ddim@25 wave, then a ddim@12 one
@@ -3736,8 +3885,9 @@ def router_phase(torch, eng):
         the tier it was served.
     (d) DiT-S/2 on the float FFN, 1 against 2 replicas: images, buckets
         and the energy key for key; 12 / 12 / 0 a replica step.
-    (e) Serving's bursty trace (2 at a time at SERVING_LOAD x (a)'s
-        2 x 2 t = 0 goodput) through ``ClusterRouter(eng, 2, 2)``: requests
+    (e) ROUTER_TRACE_REQUESTS requests on serving's bursty trace (2 at a
+        time at SERVING_LOAD x (a)'s 2 x 2 t = 0 goodput) through
+        ``ClusterRouter(eng, 2, 2)``: requests
         arrive while the router runs; 9 / 9 / 0 launches a replica step,
         none dropped; latency p50 / p95, queue wait p95, goodput, rounds,
         steps and step walls recorded.
@@ -3894,13 +4044,14 @@ def router_phase(torch, eng):
     # (e)
     rate = SERVING_LOAD * m2["goodput_imgs_per_s"]
     gap = SERVING_BURST / rate
-    trace = bursty_trace(ROUTER_REQUESTS, SERVING_BURST, gap)
-    print(f"  (e): {ROUTER_REQUESTS} requests, {SERVING_BURST} every "
+    trace = bursty_trace(ROUTER_TRACE_REQUESTS, SERVING_BURST, gap)
+    print(f"  (e): {ROUTER_TRACE_REQUESTS} requests, {SERVING_BURST} every "
           f"{gap:.4f} s ({rate:.4f} images/s, {SERVING_LOAD} x (a)'s 2 x 2 "
           f"t = 0 goodput)")
     router = ClusterRouter(float_eng, 2, s)
-    mr, _ = _route_run(torch, router, apply_trace(requests(float_eng), trace),
-                       "(e) router 2 x 2", FLOAT_ROUTE_PER_STEP)
+    mr, _ = _route_run(torch, router, apply_trace(
+        requests(float_eng, ROUTER_TRACE_REQUESTS), trace),
+        "(e) router 2 x 2", FLOAT_ROUTE_PER_STEP)
     mr.pop("states")
     _latency_line("(e) router 2 x 2", mr, mr["mean_occupancy"])
     _router_line("(e) router 2 x 2", mr)
@@ -4807,6 +4958,7 @@ def main() -> int:
         build_kernels()
         rows = kernels_phase(torch)
         eng, counts = slice_phase(torch)
+        mesh_phase(torch, eng)
         slots_phase(torch, eng)
         slot_reuse_phase(torch, eng)
         dit_phase(torch)

@@ -122,7 +122,7 @@ def _spot_and_slice(cas, precision, stats_rows: int | None,
         imp = spotted.important[:stats_rows]
         spotted = tips.TIPSResult(
             important=imp, cas=spotted.cas[:stats_rows],
-            low_precision_ratio=1.0 - imp.to(torch.float32).mean())
+            low_precision_ratio=tips.mask_low_precision_ratio(imp))
     return spotted, important_full
 
 

@@ -119,6 +119,6 @@ def spot_cas(cas: torch.Tensor, policy: PrecisionPolicy,
             threshold_scale.shape + (1,) * (cas.ndim - threshold_scale.ndim))
         thr = thr * scale
     important = cas < thr
-    low_ratio = 1.0 - important.to(torch.float32).mean()
-    return tips.TIPSResult(important=important, cas=cas,
-                           low_precision_ratio=low_ratio)
+    return tips.TIPSResult(
+        important=important, cas=cas,
+        low_precision_ratio=tips.mask_low_precision_ratio(important))

@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.launch import mesh as mesh_mod
+
 DEFAULT_THRESHOLD = 1.0 / 8192.0
 
 
@@ -161,6 +163,11 @@ def _assemble_stats(nnz, ones_xor, shape, patch: int,
     Mirrors ``repro.core.pssa._assemble_stats`` with x64 off operation for
     operation: the counters are converted to float32 once, every static
     quantity is an exact Python number rounded to float32 once.
+
+    Under an active mesh (``launch.mesh.use_mesh``) the counters and the
+    leading rows are summed over the data group as int64 first, so the
+    stats are the global batch's: the shape terms are then exact int64
+    tensors, rounded to float32 once as the Python numbers are.
     """
     tq, tk = shape[-2], shape[-1]
     lead = 1
@@ -168,6 +175,10 @@ def _assemble_stats(nnz, ones_xor, shape, patch: int,
         lead *= s
     f32 = torch.float32
     dev = nnz.device
+    if mesh_mod.active_mesh() is not None:
+        nnz, ones_xor, lead = mesh_mod.data_sum(torch.stack([
+            nnz.to(torch.int64), ones_xor.to(torch.int64),
+            torch.full((), lead, dtype=torch.int64, device=dev)]))
     nnz = nnz.to(f32)
     ones_xor = ones_xor.to(f32)
 
@@ -175,13 +186,16 @@ def _assemble_stats(nnz, ones_xor, shape, patch: int,
     total_i = lead * tq * tk
     n_tiles = lead * (tq // patch) * (tk // patch)
 
-    def const(x):
-        return torch.tensor(x, dtype=f32, device=dev)
+    def const(num, den=1.0):
+        # num / den rounded to float32 once; num an exact integer
+        if isinstance(num, torch.Tensor):
+            return (num.to(torch.float64) / den).to(f32)
+        return torch.tensor(num / den, dtype=f32, device=dev)
 
-    total = const(float(total_i))
-    bytes_baseline = const(total_i * value_bits / 8.0)
-    ptr_global = const(lead * (tq + 1) * w["ptr_bits_global"] / 8.0)
-    ptr_local = const(n_tiles * (patch + 1) * w["ptr_bits_local"] / 8.0)
+    total = const(total_i)
+    bytes_baseline = const(total_i * value_bits, 8.0)
+    ptr_global = const(lead * (tq + 1) * w["ptr_bits_global"], 8.0)
+    ptr_local = const(n_tiles * (patch + 1) * w["ptr_bits_local"], 8.0)
 
     bytes_values = nnz * value_bits / 8.0
     bytes_csr = nnz * const(w["col_bits_global"] / 8.0) + ptr_global

@@ -43,10 +43,12 @@ def _amax(x: torch.Tensor, axis) -> torch.Tensor:
 
 
 def quantize_act(x: torch.Tensor, bits: int = ACT_BITS_HIGH,
-                 axis=None) -> QTensor:
-    """Unsigned activation quantization; the scale spans ``max(x, 0)``."""
+                 axis=None, amax: torch.Tensor | None = None) -> QTensor:
+    """Unsigned activation quantization; the scale spans ``max(x, 0)``,
+    or ``amax`` when given (a data-parallel group's max of it)."""
     qmax = (1 << bits) - 1
-    amax = _amax(torch.clamp_min(x, 0.0), axis)
+    if amax is None:
+        amax = _amax(torch.clamp_min(x, 0.0), axis)
     scale = torch.clamp_min(amax, 1e-8) * (1.0 / qmax)
     q = torch.clamp(torch.round(x / scale), 0, qmax).to(torch.int32)
     return QTensor(q, scale.to(torch.float32))

@@ -6,6 +6,7 @@ the first 20 of 25 denoising iterations.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -37,9 +38,38 @@ def spot(cross_attn_probs: torch.Tensor, threshold: float,
     important <=> CAS < threshold."""
     cas = cross_attn_probs[..., :, cls_index].mean(dim=-2)     # (..., Tq)
     important = cas < threshold
-    low_ratio = 1.0 - important.to(torch.float32).mean()
     return TIPSResult(important=important, cas=cas,
-                      low_precision_ratio=low_ratio)
+                      low_precision_ratio=mask_low_precision_ratio(important))
+
+
+def low_precision_ratio(count: torch.Tensor, n: int) -> torch.Tensor:
+    """``1 - count / n`` (float32) as the JAX engine computes ``1 -
+    mean(important)`` under ``jit``: XLA turns the mean's division by the
+    constant n into a product by ``float32(1 / n)`` and fuses the
+    subtraction into one FMA, so the exact ``1 - count * float32(1 / n)``
+    is rounded once (eager JAX rounds the product first; dividing rounds
+    otherwise again: each can land an ulp of the mean away when n is not
+    a power of two).
+
+    ``count`` is an integer tensor (any shape: one ratio an element), n
+    the tokens counted.  With ``float32(1 / n) = m * 2**-k`` (m a 24-bit
+    integer) the value is ``(2**k - count * m) * 2**-k``: the integer is
+    exact in int64, its conversion to float32 the one rounding, the power
+    of two exact.  NaN at n = 0, as the mean of nothing.
+    """
+    count = count.to(torch.int64)
+    if n == 0:
+        return torch.full(count.shape, float("nan"), dtype=torch.float32,
+                          device=count.device)
+    mant, e = math.frexp(float(torch.tensor(1.0, dtype=torch.float32) / n))
+    m, k = int(mant * (1 << 24)), 24 - e
+    return ((1 << k) - count * m).to(torch.float32) * 2.0 ** -k
+
+
+def mask_low_precision_ratio(important: torch.Tensor) -> torch.Tensor:
+    """:func:`low_precision_ratio` of a mask: its count over its size."""
+    return low_precision_ratio(important.sum(dtype=torch.int64),
+                               important.numel())
 
 
 def adaptive_threshold(cas: torch.Tensor, target_low_ratio: float,

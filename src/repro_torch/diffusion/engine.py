@@ -26,6 +26,17 @@ bank become the defaults of ``generate`` and ``init_slots``.
 
 PyTorch runs eagerly, so there is no executable cache; the wall time of a
 call is taken after ``torch.cuda.synchronize()`` on the card.
+
+Data-parallel mesh mode (DESIGN.md §6): pass ``mesh`` (a ``DeviceMesh``
+with a ``data`` axis from ``launch.mesh``; one rank a card, or a gloo CPU
+rank) and every rank holds the rank-0 parameters (``place_on_mesh``
+broadcasts them) and runs the contiguous rows of the batch that
+``NamedSharding(P("data"))`` gives its data index.  The three reductions
+over the batch that the JAX package's sharded program makes global are
+made over the data group: the DBSC FFN's INT12 amax and the PSSA counters
+(int64, before the byte stats) in each step (``launch.mesh.use_mesh``),
+the TIPS counts from the gathered masks at the end.  ``generate``
+returns the global ``EngineOutput`` on every rank.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import tips as tips_mod
 from repro_torch.core.policies import ServePolicies
 from repro_torch.diffusion import solvers as solvers_mod
 from repro_torch.diffusion.pipeline import (PipelineConfig,
@@ -47,6 +59,8 @@ from repro_torch.diffusion.stats import LedgerAccum, attn_layer_order
 from repro_torch.diffusion.text_encoder import encode_text
 from repro_torch.diffusion.vae import decode
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.tree import leaves as _leaves
 
 
 @dataclasses.dataclass
@@ -93,6 +107,37 @@ def _set_row(x: torch.Tensor, row: int, value) -> torch.Tensor:
     return out
 
 
+def _gather_rows(mesh, x: torch.Tensor, b: int, accounted: list):
+    """A stacked per-row leaf (steps, rows, ...) of each rank, rows padded
+    to ``b``, gathered and cut to the rows each rank accounted: the global
+    leaf, rows in batch order."""
+    pad = torch.zeros((x.shape[0], b - x.shape[1]) + tuple(x.shape[2:]),
+                      dtype=x.dtype, device=x.device)
+    parts = mesh_mod.all_gather_rows(
+        mesh, torch.cat([x, pad], dim=1), dim=1).split(b, dim=1)
+    return torch.cat([p[:, :n] for p, n in zip(parts, accounted)], dim=1)
+
+
+def _gather_stats(mesh, stats, b: int, accounted: list):
+    """The global batch's stacked ``UNetStats`` from each rank's: the
+    PSSA stats are global already (their counters were summed over the
+    data group in each step); the per-row leaves (TIPS masks and CAS,
+    reuse counters) are gathered, and each step's TIPS ratio is formed
+    from the gathered mask's count and size."""
+    def rows(x):
+        return _gather_rows(mesh, x, b, accounted)
+
+    def spotted(t):
+        imp = rows(t.important)                 # (steps, rows, Tq)
+        return t._replace(
+            important=imp, cas=rows(t.cas),
+            low_precision_ratio=tips_mod.low_precision_ratio(
+                imp.flatten(1).sum(1, dtype=torch.int64), imp[0].numel()))
+    return dataclasses.replace(
+        stats, tips=tuple(spotted(t) for t in stats.tips),
+        reuse=tuple(type(r)(*(rows(x) for x in r)) for r in stats.reuse))
+
+
 def _check_cfg_inputs(guidance_scale: float, uncond_tokens) -> bool:
     """CFG contract: ``uncond_tokens`` iff ``guidance_scale != 1.0``."""
     wants_cfg = guidance_scale != 1.0
@@ -119,11 +164,14 @@ class DiffusionEngine:
     precision are set on the config (``configs.bk_sdm.with_kernel_policy``
     / ``with_precision``) or by ``policies`` (a ``ServePolicies``), which
     replaces the config's three policies and whose sampler and bank become
-    the defaults of ``generate`` and ``init_slots``.
+    the defaults of ``generate`` and ``init_slots``.  ``mesh`` switches
+    on data-parallel execution (module docstring); None keeps the
+    single-device engine as it was.
     """
 
     def __init__(self, cfg: PipelineConfig, device=None, params=None,
-                 generator=None, policies: Optional[ServePolicies] = None):
+                 generator=None, policies: Optional[ServePolicies] = None,
+                 mesh=None):
         self._default_sampler = self._default_bank = None
         if policies is not None:
             self._default_sampler = policies.sampler
@@ -150,6 +198,27 @@ class DiffusionEngine:
         self.unet_params = params["unet"]
         self.vae_params = params["vae"]
         self.last_wall_s: Optional[float] = None
+        self.mesh = None
+        self.dp_size = 1
+        if mesh is not None:
+            self.place_on_mesh(mesh)
+
+    def place_on_mesh(self, mesh) -> "DiffusionEngine":
+        """Replicate the parameters over ``mesh``: every rank of a data
+        group takes its first rank's (a broadcast, in place), so replicas
+        cannot drift.  Raises unless the mesh lies on the engine's device
+        type and holds this rank."""
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for an engine on "
+                             f"{self.device}")
+        mesh_mod.data_index(mesh)
+        mesh_mod.broadcast_(mesh, [
+            t for tree in (self.text_params, self.unet_params,
+                           self.vae_params)
+            for t in _leaves(tree)])
+        self.mesh = mesh
+        self.dp_size = mesh_mod.dp_size_of(mesh)
+        return self
 
     @property
     def policies(self) -> ServePolicies:
@@ -220,11 +289,61 @@ class DiffusionEngine:
                     f"{[p.key() for p in sampler_bank]}")
         use_cfg = _check_cfg_inputs(cfg.ddim.guidance_scale, uncond_tokens)
         prompt_tokens = torch.as_tensor(prompt_tokens, device=self.device)
+        batch = prompt_tokens.shape[0]
+        if self.mesh is not None:
+            if batch % self.dp_size:
+                raise ValueError(
+                    f"batch {batch} must be a multiple of the data-parallel "
+                    f"degree {self.dp_size} under mesh "
+                    f"{mesh_mod.mesh_shape(self.mesh)} — pad the "
+                    f"micro-batch")
+            if stats_rows is not None and not 0 < stats_rows <= batch:
+                raise ValueError(f"stats_rows={stats_rows} outside "
+                                 f"[1, {batch}]")
         if latents is None:
-            latents = self.init_latents(prompt_tokens.shape[0], generator)
+            latents = self.init_latents(batch, generator)
         latents = torch.as_tensor(latents, dtype=torch.float32,
                                   device=self.device)
         t0 = time.perf_counter()
+        if self.mesh is None:
+            return self._run(prompt_tokens, uncond_tokens, latents,
+                             stats_rows, sampler_policy, sampler_bank,
+                             use_cfg, t0)
+        with mesh_mod.use_mesh(self.mesh):
+            return self._generate_rows(prompt_tokens, uncond_tokens,
+                                       latents, stats_rows, sampler_policy,
+                                       sampler_bank, use_cfg, t0)
+
+    def _generate_rows(self, prompt_tokens, uncond_tokens, latents,
+                       stats_rows, sampler_policy, sampler_bank, use_cfg,
+                       t0) -> EngineOutput:
+        """Mesh mode: run this rank's rows, return the global output."""
+        b = prompt_tokens.shape[0] // self.dp_size
+        lo = mesh_mod.data_index(self.mesh) * b
+        rows = slice(lo, lo + b)
+        local_rows = (None if stats_rows is None
+                      else min(max(stats_rows - lo, 0), b))
+        out = self._run(prompt_tokens[rows],
+                        None if uncond_tokens is None
+                        else torch.as_tensor(uncond_tokens)[rows],
+                        latents[rows], local_rows, sampler_policy,
+                        sampler_bank, use_cfg, t0)
+        accounted = [b if stats_rows is None
+                     else min(max(stats_rows - i * b, 0), b)
+                     for i in range(self.dp_size)]
+        gathered = EngineOutput(
+            images=mesh_mod.all_gather_rows(self.mesh, out.images),
+            latents=mesh_mod.all_gather_rows(self.mesh, out.latents),
+            stats=_gather_stats(self.mesh, out.stats, b, accounted))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.last_wall_s = time.perf_counter() - t0
+        return gathered
+
+    def _run(self, prompt_tokens, uncond_tokens, latents, stats_rows,
+             sampler_policy, sampler_bank, use_cfg, t0) -> EngineOutput:
+        """encode -> denoising loop -> decode on this process's rows."""
+        cfg = self.cfg
         context = self._encode(prompt_tokens)
         uncond = self._encode(uncond_tokens) if use_cfg else None
         if cfg.unet.reuse_policy.enabled:
@@ -285,6 +404,11 @@ class DiffusionEngine:
         per-slot reuse cache.  ``bank=None`` takes the engine's
         ``policies`` bank.
         """
+        if self.mesh is not None:
+            raise ValueError(
+                "slot-state mode is single-device: per-slot admission "
+                "rewrites batch rows between steps (use micro-batch "
+                "serving for mesh execution)")
         if num_slots < 1:
             raise ValueError(f"num_slots={num_slots} must be >= 1")
         if bank is None:

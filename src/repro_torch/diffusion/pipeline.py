@@ -426,7 +426,9 @@ def merge_ledger_accums(accums) -> LedgerAccum:
     and integer addition is exact, associative and commutative: the
     merged accumulator, and every report from it, is the same at any
     replica count, routing decision or admission order that serves the
-    same requests.  All six int64 planes are summed, field by field.
+    same requests.  All six int64 planes are summed, field by field, on
+    the first accumulator's device (replicas on other cards are copied
+    there).
     """
     accums = list(accums)
     if not accums:
@@ -436,8 +438,9 @@ def merge_ledger_accums(accums) -> LedgerAccum:
         raise ValueError(
             f"merge_ledger_accums: mismatched bucket layouts {shapes} — "
             f"replicas must share one bank/schedule")
+    dev = accums[0].nnz.device
     return LedgerAccum(**{
-        f.name: sum((getattr(a, f.name) for a in accums[1:]),
+        f.name: sum((getattr(a, f.name).to(dev) for a in accums[1:]),
                     getattr(accums[0], f.name))
         for f in dataclasses.fields(LedgerAccum)})
 

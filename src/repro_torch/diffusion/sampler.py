@@ -27,6 +27,7 @@ import torch
 from repro_torch.core.tips import TIPS_ACTIVE_ITERS
 from repro_torch.diffusion import solvers as solvers_mod
 from repro_torch.diffusion.stats import UNetStats
+from repro_torch.launch import mesh as mesh_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,6 +233,14 @@ def _resolve_bank(sampler_policy, sampler_bank):
     return bank, sampler_policy.num_steps, bank.index(sampler_policy)
 
 
+def _check_stats_rows(stats_rows, b: int) -> None:
+    """``stats_rows`` in [1, b]; under an active mesh a rank whose rows all
+    lie past the accounted ones accounts for none (0)."""
+    low = 1 if mesh_mod.active_mesh() is None else 0
+    if stats_rows is not None and not (low <= stats_rows <= b):
+        raise ValueError(f"stats_rows={stats_rows} outside [{low}, {b}]")
+
+
 def sample_scan(unet_apply, latents, context, uncond_context,
                 cfg: DDIMConfig, stats_rows=None, sampler_policy=None,
                 sampler_bank=None):
@@ -247,8 +256,7 @@ def sample_scan(unet_apply, latents, context, uncond_context,
     bank.
     """
     b = latents.shape[0]
-    if stats_rows is not None and not (0 < stats_rows <= b):
-        raise ValueError(f"stats_rows={stats_rows} outside [1, {b}]")
+    _check_stats_rows(stats_rows, b)
     if sampler_bank is not None and sampler_policy is None:
         raise ValueError("sampler_bank requires sampler_policy (the "
                          "bank entry to run every row under)")
@@ -301,8 +309,7 @@ def sample_scan_reuse(unet_apply, latents, context, uncond_context,
     counters (plus the recorded caches when asked).
     """
     b = latents.shape[0]
-    if stats_rows is not None and not (0 < stats_rows <= b):
-        raise ValueError(f"stats_rows={stats_rows} outside [1, {b}]")
+    _check_stats_rows(stats_rows, b)
     if (reuse_cache is None) == (base_caches is None):
         raise ValueError(
             "pass exactly one of reuse_cache (temporal mode) or "

@@ -6,7 +6,9 @@ bit-slice split, the integer matmul, and the output rescale.  A CUDA tensor
 goes through the hand-written kernel, a CPU tensor through the plain
 version; ``quant_path="int8"`` runs the same integers as two int8 x int8 ->
 int32 library products on either device.  The integers are identical on
-every route.
+every route.  Under an active mesh (``launch.mesh.use_mesh``) the scale's
+amax is the data group's, so a rank's rows get the codes they get in the
+whole batch.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from repro_torch.kernels.bitslice_matmul.kernel import (DATAFLOWS,
                                                        bitslice_matmul_kernel)
 from repro_torch.kernels.bitslice_matmul.ref import (bitslice_matmul_int8,
                                                      bitslice_matmul_ref)
+from repro_torch.launch import mesh as mesh_mod
 
 QUANT_PATHS = ("model", "int8")
 
@@ -35,7 +38,10 @@ def bitslice_integers(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"bitslice_matmul: quant_path={quant_path!r}, "
                          f"expected one of {QUANT_PATHS}")
     m = x.shape[0]
-    qx = quant.quantize_act(x, quant.ACT_BITS_HIGH)
+    # ONE per-tensor scale over the batch: under a mesh, the data group's
+    # (its rows are one matrix in the JAX package's sharded program)
+    amax = mesh_mod.data_max(torch.clamp_min(x, 0.0).max())
+    qx = quant.quantize_act(x, quant.ACT_BITS_HIGH, amax=amax)
     qw = quant.quantize_weight(w)
     if important is None:
         vals = qx.values

@@ -80,7 +80,9 @@ class ClusterRouter:
     ``slots_per_replica`` rows each.
 
     ``engine`` is shared: replica ``i`` is an independent ``SlotState``
-    stepped through it.
+    stepped through it.  ``engines`` (one per replica, e.g. each on its
+    own card) supplies the replicas' engines instead; they must share
+    ``engine``'s pipeline config, so images and ledger buckets agree.
 
     ``bank`` defaults to ``engine.policies.bank``, as in the
     single-replica scheduler.  ``preview_every=K`` (> 0) decodes a preview
@@ -90,10 +92,23 @@ class ClusterRouter:
 
     def __init__(self, engine, replicas: int, slots_per_replica: int,
                  bank=None, slo: Optional[RouterSLO] = None,
-                 preview_every: int = 0):
+                 preview_every: int = 0, engines=None):
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
+        if engines is not None:
+            engines = list(engines)
+            if len(engines) != replicas:
+                raise ValueError(
+                    f"engines= carries {len(engines)} engines for "
+                    f"{replicas} replicas")
+            for e in engines:
+                if e.cfg != engine.cfg:
+                    raise ValueError(
+                        "per-replica engines must share the pipeline "
+                        "config — differing configs fork executables, "
+                        "images and ledger buckets")
         self.engine = engine
+        self.engines = engines or [engine] * replicas
         self.replicas = replicas
         self.slots_per_replica = slots_per_replica
         if bank is None:
@@ -112,21 +127,21 @@ class ClusterRouter:
     # -- lifecycle -------------------------------------------------------
     def warmup(self) -> float:
         """One admit, one step and every power-of-two decode a run can
-        hit, off the clock (the replicas share the engine, so it warms
-        once).  Returns the wall seconds."""
+        hit, off the clock, once for each distinct engine (replicas that
+        share one warm it once).  Returns the wall seconds."""
         t0 = time.perf_counter()
-        eng = self.engine
-        state = eng.init_slots(self.slots_per_replica, bank=self.bank)
-        toks = torch.zeros((1, eng.cfg.text.max_len), dtype=torch.int32,
-                           device=eng.device)
-        un = toks if state.uncond_context is not None else None
-        state = eng.admit(state, 0, toks, torch.Generator(
-            device=eng.device).manual_seed(0), uncond_tokens=un)
-        state = eng.slot_step(state)
-        k = 1
-        while k <= self.slots_per_replica:
-            eng.decode_slots(state, list(range(k))).cpu()
-            k *= 2
+        for eng in dict.fromkeys(self.engines):        # unique, in order
+            state = eng.init_slots(self.slots_per_replica, bank=self.bank)
+            toks = torch.zeros((1, eng.cfg.text.max_len), dtype=torch.int32,
+                               device=eng.device)
+            un = toks if state.uncond_context is not None else None
+            state = eng.admit(state, 0, toks, torch.Generator(
+                device=eng.device).manual_seed(0), uncond_tokens=un)
+            state = eng.slot_step(state)
+            k = 1
+            while k <= self.slots_per_replica:
+                eng.decode_slots(state, list(range(k))).cpu()
+                k *= 2
         return time.perf_counter() - t0
 
     # -- SLO admission ---------------------------------------------------
@@ -178,9 +193,9 @@ class ClusterRouter:
         pending = sorted(requests, key=lambda r: (r.arrival_s, r.rid))
         ready: list = []
         owners = [dict() for _ in range(self.replicas)]
-        eng = self.engine
+        engines = self.engines
         states = [eng.init_slots(self.slots_per_replica, bank=self.bank)
-                  for _ in range(self.replicas)]
+                  for eng in engines]
         decode_jobs: list = []    # (req, round, image row on the device)
         preview_jobs: list = []   # (req, step, image row on the device)
         completed = 0
@@ -211,7 +226,7 @@ class ClusterRouter:
                     req.degraded_from = req.tier
                     req.policy_index = pidx
                     req.tier = self.bank[pidx].label()
-                states[ri] = eng.admit(
+                states[ri] = engines[ri].admit(
                     states[ri], slot, req.tokens, None,
                     uncond_tokens=req.uncond_tokens, latents=req.latents,
                     policy_index=req.policy_index)
@@ -253,9 +268,9 @@ class ClusterRouter:
             for ri in range(self.replicas):
                 if not owners[ri]:
                     continue
-                states[ri] = eng.slot_step(states[ri])
+                states[ri] = engines[ri].slot_step(states[ri])
                 step_calls += 1
-                step_wall += eng.last_wall_s
+                step_wall += engines[ri].last_wall_s
                 stepped_rows += len(owners[ri])
             round_idx += 1
             # every host read of the round (finished rows; the preview
@@ -263,7 +278,7 @@ class ClusterRouter:
             # for a decode: slot_step has synchronised
             preview = bool(self.preview_every
                            and round_idx % self.preview_every == 0)
-            done = [[s for s in eng.finished_slots(states[ri])
+            done = [[s for s in engines[ri].finished_slots(states[ri])
                      if s in owners[ri]] if owners[ri] else []
                     for ri in range(self.replicas)]
             step_of = [states[ri].step_idx.tolist()
@@ -273,17 +288,17 @@ class ClusterRouter:
             # rows are admissible next pass, the pixels copied after it
             for ri in range(self.replicas):
                 if done[ri]:
-                    imgs = eng.decode_slots(states[ri], done[ri])
+                    imgs = engines[ri].decode_slots(states[ri], done[ri])
                     for j, slot in enumerate(done[ri]):
                         decode_jobs.append((owners[ri].pop(slot),
                                             round_idx, imgs[j:j + 1]))
-                    states[ri] = eng.retire(states[ri], done[ri])
+                    states[ri] = engines[ri].retire(states[ri], done[ri])
             # previews of the rows still in flight
             for ri in range(self.replicas):
                 slots = sorted(owners[ri])
                 if step_of[ri] is None or not slots:
                     continue
-                pv = eng.decode_preview(states[ri], slots)
+                pv = engines[ri].decode_preview(states[ri], slots)
                 for j, slot in enumerate(slots):
                     preview_jobs.append((owners[ri][slot],
                                          step_of[ri][slot], pv[j:j + 1]))

@@ -8,7 +8,7 @@
       [--replicas 2 --slots 2 [--slo-steps 8 --no-degrade] \\
        [--preview-every 5]] \\
       [--solver dpm2m,steps=12] [--tiers draft balanced quality] \\
-      [--device cpu]
+      [--mesh 2] [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given (a host without CUDA
 raises otherwise).  The policy flags (``--kernels``/``--tips``/
@@ -46,8 +46,14 @@ queues instead); ``--preview-every K`` streams preview decodes of
 in-flight rows.  The ``--ledger`` headline merges the replicas' integer
 accumulators and is the same at any replica count.
 
-The JAX package's ``--mesh`` (ROADMAP.md Queue 1 item 4) is not ported
-yet.
+Mesh mode (``--mesh N``, DESIGN.md §6): data-parallel micro-batches over
+N ranks of one process group (``launch.mesh``), one process a rank: N
+cards (NCCL; fewer cards raise ``make_data_mesh``'s message), or with
+``--device cpu`` N gloo ranks on the host, the counterpart of the JAX
+package's simulated host devices.  The micro-batch is rounded up to a
+multiple of N; every rank serves the same queue, each generating its
+rows, and the first rank's report is printed.  The ledger is built from
+the global stats, so it is the unsharded run's.
 """
 from __future__ import annotations
 
@@ -62,6 +68,7 @@ from repro_torch.diffusion.pipeline import (aggregated_reuse_ratios_per_iter,
                                             aggregated_tips_ratios_per_iter,
                                             energy_report_multi)
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.cli import (add_policy_args, config_from_args,
                                     policies_from_args)
 from repro_torch.launch.router import ClusterRouter, RouterSLO
@@ -69,6 +76,9 @@ from repro_torch.launch.scheduler import (ContinuousScheduler, apply_trace,
                                           bursty_trace, make_edit_requests,
                                           make_requests, micro_batches,
                                           request_generator)
+
+
+MESH_SERVE_TIMEOUT_S = 3600.0   # --mesh: the spawned group's whole run
 
 
 def make_config(args, policies=None):
@@ -89,7 +99,8 @@ def synthetic_requests(cfg, n: int, seed: int = 7, device=None
 
 
 def serve(cfg, requests, micro_batch: int, seed: int = 0,
-          ledger: bool = False, sampler_policy=None, device=None) -> dict:
+          ledger: bool = False, sampler_policy=None, device=None,
+          mesh=None) -> dict:
     """Drain the request rows through the engine in micro-batches; return
     serving metrics.
 
@@ -97,12 +108,17 @@ def serve(cfg, requests, micro_batch: int, seed: int = 0,
     ``device`` (``None``: the card), batch ``i``'s initial latents from
     ``scheduler.request_generator(seed, i)``.  ``sampler_policy`` (a
     ``solvers.SamplerPolicy``) applies to every request; the ledger then
-    normalizes by its step budget.  ``"mesh"`` is always None: the port
-    has no mesh mode yet.
+    normalizes by its step budget.  ``mesh`` (a ``launch.mesh`` mesh; run
+    this on each of its ranks) serves data-parallel: the micro-batch is
+    rounded up to a multiple of its dp size, and every rank returns the
+    same global metrics but its own times.
     """
     device = resolve_device(device)
     eng = DiffusionEngine(cfg, device=device, generator=torch.Generator(
-        device=device).manual_seed(seed))
+        device=device).manual_seed(seed), mesh=mesh)
+    dp = eng.dp_size
+    # micro-batches must tile evenly over the data axis
+    micro_batch = -(-micro_batch // dp) * dp
     use_cfg = cfg.ddim.guidance_scale != 1.0
     uncond = (torch.zeros((micro_batch, cfg.text.max_len), dtype=torch.int32,
                           device=device) if use_cfg else None)
@@ -146,7 +162,11 @@ def serve(cfg, requests, micro_batch: int, seed: int = 0,
         "kernel_policy": cfg.unet.kernel_policy.describe(device),
         "precision_policy": cfg.unet.precision.describe(),
         "micro_batch": micro_batch,
-        "mesh": None,
+        "mesh": None if mesh is None else {
+            "dp": dp,
+            "shape": mesh_mod.mesh_shape(mesh),
+            "devices": int(mesh.size()),
+        },
         "engine_calls": len(batches),
         "padded_rows": padded,
         "steps_per_image": steps,
@@ -262,7 +282,7 @@ def serve_cluster(cfg, num_requests: int, replicas: int, num_slots: int,
     return metrics
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true",
                     help="reduced geometry (CPU-friendly)")
@@ -303,6 +323,10 @@ def main(argv=None) -> None:
     ap.add_argument("--preview-every", type=int, default=0,
                     help="router streaming: decode progressive previews "
                          "of in-flight rows every K rounds (0 = off)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="data-parallel degree: shard micro-batches over N "
+                         "ranks (N cards, or N CPU ranks with --device "
+                         "cpu); 0 = single-device")
     ap.add_argument("--device", default=None,
                     help="torch device to serve on (default: the card; a "
                          "host without CUDA raises unless 'cpu' is given)")
@@ -313,12 +337,17 @@ def main(argv=None) -> None:
         ap.error("--micro-batch must be >= 1")
     if args.requests < 1:
         ap.error("--requests must be >= 1")
+    if args.mesh < 0:
+        ap.error("--mesh must be >= 0")
     if args.slots < 1:
         ap.error("--slots must be >= 1")
     if args.burst < 1:
         ap.error("--burst must be >= 1")
     if args.arrival_rate < 0:
         ap.error("--arrival-rate must be >= 0")
+    if args.continuous and args.mesh > 1:
+        ap.error("--continuous is single-device (see DESIGN.md §8); "
+                 "drop --mesh")
     if args.edit and not args.continuous:
         ap.error("--edit rides the slot scheduler's admit(latents=) path; "
                  "add --continuous")
@@ -329,6 +358,9 @@ def main(argv=None) -> None:
     if args.replicas < 0:
         ap.error("--replicas must be >= 0")
     if args.replicas:
+        if args.mesh > 1:
+            ap.error("--replicas runs the single-device slot runtime per "
+                     "replica (DESIGN.md §13); drop --mesh")
         if args.edit:
             ap.error("--replicas serves t2i traces; --edit rides the "
                      "single-replica --continuous path")
@@ -351,6 +383,8 @@ def main(argv=None) -> None:
                  "admission is t2i-only for now")
 
     device = resolve_device(args.device)
+    if args.mesh > 1:
+        mesh_mod.require_devices(args.mesh, device)
     # one parse of the policy surface feeds the config and the bank
     policies = policies_from_args(args)
     cfg = make_config(args, policies=policies)
@@ -368,7 +402,8 @@ def main(argv=None) -> None:
           f"({'fused-CFG' if args.guidance != 1.0 else 'no CFG'}), "
           f"{batching}, kernels {args.kernels}, tips {args.tips}, "
           f"reuse {args.reuse}, workload {'edit' if args.edit else 't2i'}, "
-          f"device {device}")
+          f"device {device}, "
+          f"mesh {'dp=' + str(args.mesh) if args.mesh > 1 else 'none'}")
     if bank is None and sampler_policy is not None and (
             args.replicas or args.continuous):
         bank = (sampler_policy,)          # single-tier bank
@@ -385,11 +420,29 @@ def main(argv=None) -> None:
                                    arrival_rate=args.arrival_rate,
                                    burst=args.burst, ledger=args.ledger,
                                    edit=args.edit, bank=bank, device=device)
+    elif args.mesh > 1:
+        metrics = mesh_mod.spawn(
+            _serve_on_mesh, args.mesh,
+            args=(cfg, args.requests, args.micro_batch, args.ledger,
+                  sampler_policy, args.mesh),
+            device=device, timeout=MESH_SERVE_TIMEOUT_S)[0]
     else:
         reqs = synthetic_requests(cfg, args.requests, device=device)
         metrics = serve(cfg, reqs, args.micro_batch, ledger=args.ledger,
                         sampler_policy=sampler_policy, device=device)
     print(json.dumps(metrics, indent=2))
+    return metrics
+
+
+def _serve_on_mesh(cfg, n_requests: int, micro_batch: int, ledger: bool,
+                   sampler_policy, dp: int) -> dict:
+    """One rank of ``--mesh``: the whole synthetic queue through ``serve``
+    on a (dp, 1) data mesh of the spawned group."""
+    device = mesh_mod.group_device()
+    reqs = synthetic_requests(cfg, n_requests, device=device)
+    return serve(cfg, reqs, micro_batch, ledger=ledger,
+                 sampler_policy=sampler_policy, device=device,
+                 mesh=mesh_mod.make_data_mesh(dp))
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@ FFN with the TIPS hook (port of ``repro.models.layers``).
 
 The port has no mesh yet, so there is no ``ShardCtx``, no ``ctx``
 argument, no ``maybe_cs`` and no ``*_param_specs``: they come with
-multi-GPU serving (ROADMAP.md, Queue 1 item 4).  Casts mirror the JAX
+multi-GPU serving (ROADMAP.md, Queue 1 item 4b).  Casts mirror the JAX
 package's: projections and the P V product in the activation dtype, the
 softmax in float32.
 """

@@ -9,7 +9,7 @@ token.
 
 The JAX package's expert- and tensor-parallel ``shard_map`` path,
 ``moe_mode`` and ``moe_param_specs`` come with multi-GPU serving
-(ROADMAP.md, Queue 1 item 4): here every expert runs on one device.
+(ROADMAP.md, Queue 1 item 4b): here every expert runs on one device.
 """
 from __future__ import annotations
 

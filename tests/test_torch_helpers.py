@@ -21,11 +21,15 @@ The same numpy inputs (from a seed) go through both packages.  Tolerances:
 * ``adaptive_threshold``: bit for bit (the port mirrors ``jnp.quantile``
   and the FMA XLA's CPU backend contracts its interpolation into), over
   the whole tensor and per row as ``precision.spot_cas`` takes it;
-* ``precision.spot_cas``'s ratio over 5 x 1001 tokens: within 2**-23
-  absolute, one float32 ulp of the mean near 1 it is taken from.  Its
-  mask is equal, but ``1 - mean`` divides by the count where JAX
-  multiplies by its float32 reciprocal (ROADMAP Queue 3 item 21); at a
-  power-of-two count the two are the same.
+* the TIPS low-precision ratio ``1 - mean(important)`` at its three
+  sites (``tips.spot``, ``precision.spot_cas`` and the cross-attention's
+  ``stats_rows`` slice): bit for bit the jitted JAX engine's, which
+  rounds ``1 - count * float32(1 / n)`` once (one FMA), at counts whose
+  n is not a power of two (ROADMAP Queue 3 item 21, closed);
+* ``precision.spot_cas``'s ratio over 5 x 1001 tokens against EAGER JAX:
+  within 2**-23 absolute, one float32 ulp of the mean near 1 it is taken
+  from.  Eager JAX rounds the product before the subtraction; at a
+  power-of-two count the forms are the same.
 """
 import jax
 import jax.numpy as jnp
@@ -161,6 +165,76 @@ def test_adaptive_threshold_per_row_matches_jax(target):
     np.testing.assert_allclose(got.low_precision_ratio.numpy(),
                                np.asarray(want.low_precision_ratio),
                                rtol=0, atol=RATIO_ATOL)
+
+
+# the diffusion path's counts: 5 x 1001 tokens (ROADMAP Queue 3 item 21)
+# and batch 3 at the UNet's 4096 / 1024 / 256 tokens a row
+RATIO_CASES = [(5, 1001), (3, 4096), (3, 1024), (3, 256)]
+
+
+def _masks(rows, tokens, n_counts=12):
+    """Masks of (rows, tokens) whose counts cover the ends, thirds and
+    halves of n and random counts between, each at random positions."""
+    n = rows * tokens
+    rng = np.random.default_rng(n)
+    counts = sorted({0, 1, 2, n // 3, n // 2, n - 1, n,
+                     *rng.integers(3, n - 1, n_counts).tolist()})
+    for c in counts:
+        m = np.zeros(n, bool)
+        m[rng.permutation(n)[:c]] = True
+        yield c, m.reshape(rows, tokens)
+
+
+@pytest.mark.parametrize("rows,tokens", RATIO_CASES)
+def test_low_precision_ratio_matches_jitted_jax(rows, tokens):
+    """``tips.low_precision_ratio`` (one count, and a vector of them as
+    the engine takes a mesh's steps at once) and
+    ``tips.mask_low_precision_ratio``, bit for bit ``jax.jit`` of the JAX
+    package's ``1 - jnp.mean(mask)``."""
+    jratio = jax.jit(lambda m: 1.0 - jnp.mean(m.astype(jnp.float32)))
+    n = rows * tokens
+    counts, wants = [], []
+    for c, m in _masks(rows, tokens):
+        want = jratio(jnp.asarray(m))
+        _same_bits(tips.low_precision_ratio(
+            torch.tensor(c, dtype=torch.int64), n), want)
+        _same_bits(tips.mask_low_precision_ratio(_t(m)), want)
+        counts.append(c)
+        wants.append(np.asarray(want))
+    _same_bits(tips.low_precision_ratio(torch.tensor(counts), n),
+               np.stack(wants))
+    assert bool(torch.isnan(tips.low_precision_ratio(torch.tensor(0), 0)))
+
+
+@pytest.mark.parametrize("rows,tokens", RATIO_CASES)
+def test_ratio_sites_match_jitted_jax(rows, tokens):
+    """The three sites that report the ratio, each against ``jax.jit`` of
+    its JAX counterpart on the same mask: ``tips.spot`` (a CLS score
+    column under the threshold exactly where the mask is set),
+    ``precision.spot_cas`` and the cross-attention's spotting tail with
+    ``stats_rows`` (one spare row past the accounted ones)."""
+    from repro.core import attention as jattention
+    from repro.core import precision as jprecision
+    from repro_torch.core import attention, precision
+    j_spot = jax.jit(lambda p: jtips.spot(p, 0.5).low_precision_ratio)
+    j_cas = jax.jit(lambda c: jprecision.spot_cas(
+        c, jprecision.PrecisionPolicy(threshold=0.5)).low_precision_ratio)
+    j_tail = jax.jit(lambda c: jattention._spot_and_slice(
+        c, jprecision.PrecisionPolicy(threshold=0.5),
+        stats_rows=rows)[0].low_precision_ratio)
+    pol = precision.PrecisionPolicy(threshold=0.5)
+    for _, m in _masks(rows, tokens, n_counts=4):
+        cas = np.where(m, 0.25, 0.75).astype(np.float32)
+        probs = np.stack([cas, 1.0 - cas], axis=-1)[:, None]  # (r, 1, T, 2)
+        spare = np.concatenate([cas, np.full((1, tokens), 0.25,
+                                             np.float32)])
+        _same_bits(tips.spot(_t(probs), 0.5).low_precision_ratio,
+                   j_spot(jnp.asarray(probs)))
+        _same_bits(precision.spot_cas(_t(cas), pol).low_precision_ratio,
+                   j_cas(jnp.asarray(cas)))
+        _same_bits(attention._spot_and_slice(
+            _t(spare), pol, stats_rows=rows)[0].low_precision_ratio,
+            j_tail(jnp.asarray(spare)))
 
 
 @pytest.mark.parametrize("active", [20, 5])

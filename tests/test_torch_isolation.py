@@ -83,7 +83,7 @@ def test_port_imports_neither_jax_nor_repro():
                 "configs.yi_9b", "launch.serve",
                 "diffusion.denoiser", "diffusion.dit", "configs.dit_s",
                 "core.policies", "launch.cli", "launch.scheduler",
-                "launch.serve_diffusion", "launch.router",
+                "launch.serve_diffusion", "launch.router", "launch.mesh",
                 "kernels.autotune", "tree", "optim.adamw",
                 "optim.schedules", "optim.compression", "data.pipeline",
                 "checkpoint.store", "launch.model_flops", "train.trainer",
@@ -173,7 +173,8 @@ def test_serve_diffusion_runs_on_the_card_unless_asked_for_the_cpu():
     from repro_torch.launch import serve_diffusion
     for argv in (["--smoke"], ["--smoke", "--continuous"],
                  ["--smoke", "--kernels", "reference"],
-                 ["--smoke", "--replicas", "2"]):
+                 ["--smoke", "--replicas", "2"],
+                 ["--smoke", "--mesh", "2"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve_diffusion.main(argv)
 
