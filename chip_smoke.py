@@ -138,7 +138,7 @@ no result line):
 17. lm         — llama3-8b (dense), qwen2-moe-a2.7b (moe) and hymba-1.5b
                  (hybrid) at their published geometry, one at a time,
                  through ``launch.serve.serve``: batch 4, a 2048-token
-                 prompt (hymba's rings wrap), 32 greedy tokens; hymba's
+                 prompt (hymba's rings wrap), 16 greedy tokens; hymba's
                  prefill on ``ssd_scan`` (32 launches, none in decode) and
                  each of its mixers on the kernel against the chunked
                  route; the first token is prefill's argmax; the int8 KV
@@ -165,7 +165,18 @@ no result line):
                  without (the same); hymba's (f) the ``ssd_scan`` kernel
                  route refuses to train; s a step, tokens/s, peak GB, the
                  busy share and the five largest device ops of one step,
-                 the model-FLOP share of 989 TFLOP/s.
+                 the model-FLOP share of 989 TFLOP/s.  Then the tensor-
+                 and expert-parallel path at degree 1, in a one-rank NCCL
+                 group on ``make_elastic_mesh()``: (g) qwen2-moe's 2-layer
+                 state and hymba's 4-layer one take ``make_train_step(
+                 ctx=)``'s step bit for bit against the unsharded step
+                 (loss, grad norm, parameters, moments), with and without
+                 ``remat_save_collectives``, the collectives a step and
+                 their host us printed; (h) hymba-1.5b whole prefills on
+                 the ``ssd_scan`` kernel under the mesh bit for bit
+                 against ``ctx=None`` (one call a layer each); (i)
+                 ``launch.train --sharded`` takes 2 steps at smoke
+                 geometry through its CLI.
 19. examples   — the five example twins (``repro_torch.examples``), each
                  ``main()`` in process on the card: ``quickstart`` (the
                  DBSC kernel's integers equal its oracle; one bit-slice
@@ -309,9 +320,10 @@ CARRY_F32_RTOL = 1e-4
 CARRY_RTOL = 1e-1
 # lm: llama3-8b, qwen2-moe-a2.7b and hymba-1.5b at their published
 # geometry (random weights from a seed): batch 4, a 2048-token prompt
-# (past hymba's 1024-token window, so its ring buffers wrap), 32 greedy
-# tokens; profiles of prefill and of 4 decode steps
-LM_BATCH, LM_PROMPT, LM_NEW, LM_PROFILE_STEPS = 4, 2048, 32, 4
+# (past hymba's 1024-token window, so its ring buffers wrap), 16 greedy
+# tokens (32 before the train phase's (g)-(i) came: decode depth paid for
+# them); profiles of prefill and of 4 decode steps
+LM_BATCH, LM_PROMPT, LM_NEW, LM_PROFILE_STEPS = 4, 2048, 16, 4
 LM_GEOMETRY = {
     "llama3-8b": dict(
         family="dense", num_layers=32, d_model=4096, num_heads=32,
@@ -371,6 +383,13 @@ TRAIN_MOE_FT_LAYERS = 1     # (d), (e): qwen2-moe's depth for resume, remat
 TRAIN_FT_LAYERS, TRAIN_FT_SEQ = 4, 1024
 TRAIN_LR, TRAIN_DESCENT_LR = 3e-4, 1e-5
 TRAIN_LOSS_RTOL = 1e-5
+# (g)-(i): the tensor- and expert-parallel path at degree 1, one NCCL rank
+# (the host has one card): every collective is an identity over the one
+# rank and the ops are those of ctx=None, so the sharded step, prefill and
+# CLI are held bit for bit.  TRAIN_CLI_ARGS: launch.train --sharded at
+# smoke geometry through its CLI.
+TRAIN_CLI_ARGS = ("--arch", "hymba-1.5b", "--smoke", "--steps", "2",
+                  "--batch", "4", "--seq", "64", "--sharded")
 H100_BF16_DENSE_FLOPS = 989e12
 
 REPLACES = {
@@ -1579,12 +1598,131 @@ def _resume_and_remat(torch, name, cfg, ds, opt, exact: bool):
     return params
 
 
+def _sharded_steps(torch, name, cfg, step, state, batch, ctx, opt):
+    """(g): one step of ``make_train_step(ctx=)`` at degree 1 against
+    ``step`` (unsharded) from the same state and batch, with and without
+    ``remat_save_collectives``: loss, grad norm, parameters and moments
+    bit for bit.  Prints the collectives a step and their host us."""
+    from repro_torch import tree as tree_util
+    from repro_torch.models import parallel as PAR
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_train_step
+
+    require(T.param_layout(cfg, ctx.tp_size)["layers"] is None,
+            f"{name}: (g) a leaf splits at degree 1")
+    ref, mref = step(state, batch)
+    for save in (False, True):
+        c = cfg.scaled(remat_save_collectives=save)
+        sharded = make_train_step(c, opt, ctx=ctx)
+        torch.cuda.synchronize()
+        PAR.reset_collective_counts()
+        dt, (got, mgot) = _synced_s(torch, lambda: sharded(state, batch))
+        counts = PAR.collective_counts()
+        n = counts["tp_all_reduce"] + counts["dp_all_reduce"]
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_util.leaves((ref, mref)), tree_util.leaves((got, mgot))))
+        print(f"  {name}: (g) sharded step at degree 1 (mesh "
+              f"{mesh_shape_of(ctx)}, remat_save_collectives {save}): "
+              f"loss {float(mgot['loss'])!r} / {float(mref['loss'])!r}, "
+              f"grad norm {float(mgot['grad_norm'])!r} / "
+              f"{float(mref['grad_norm'])!r}; parameters, moments and "
+              f"metrics bit-equal: {same}; {counts['tp_all_reduce']} model-"
+              f"axis + {counts['dp_all_reduce']} data-axis all-reduces a "
+              f"step, {counts['host_s'] / max(n, 1) * 1e6:.1f} us of host "
+              f"time each, step {dt:.4f} s")
+        require(same, f"{name}: (g) the sharded step is not bit-equal "
+                      f"(remat_save_collectives {save})")
+        require(counts["dp_all_reduce"] > 0, f"{name}: (g) no collective")
+        del got, mgot
+    del ref, mref
+
+
+def mesh_shape_of(ctx) -> dict:
+    from repro_torch.launch.mesh import mesh_shape
+    return mesh_shape(ctx.mesh)
+
+
+def _sharded_prefill(torch, ctx):
+    """(h): hymba-1.5b whole (published geometry, bf16) prefill on the
+    kernel route under ``ctx`` against ``ctx=None``: logits and cache bit
+    for bit, one ``ssd_scan`` call a layer each (its four phase kernels)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import runtime
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+    cfg = get_arch("hymba-1.5b").scaled(use_ssd_kernel=True)
+    _hold_geometry(cfg, "hymba-1.5b")
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(1), device="cuda")
+    out, calls = {}, {}
+    with torch.inference_mode():
+        for tag, c in (("plain", None), ("sharded", ctx)):
+            runtime.reset_launch_counts()
+            out[tag] = T.prefill(T.shard_params(params, cfg, c), cfg,
+                                 tokens=prompts, ctx=c)
+            torch.cuda.synchronize()
+            calls[tag] = runtime.launch_counts().get("ssd_scan", 0)
+    same = all(torch.equal(a, b) for a, b in zip(leaves(out["plain"]),
+                                                 leaves(out["sharded"])))
+    print(f"  hymba-1.5b: (h) whole prefill ({TRAIN_BATCH} x {TRAIN_SEQ}) "
+          f"on the kernel route under the mesh against ctx=None: logits and "
+          f"cache bit-equal: {same}; ssd_scan calls {calls['sharded']} / "
+          f"{calls['plain']} ({cfg.num_layers} layers) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    require(same, "hymba-1.5b: (h) the sharded prefill is not bit-equal")
+    require(calls == {"plain": cfg.num_layers, "sharded": cfg.num_layers},
+            f"hymba-1.5b: (h) ssd_scan calls {calls}")
+    del params, out
+
+
+def _sharded_cli(torch):
+    """(i): ``launch.train --sharded`` at smoke geometry through its CLI,
+    in this process's one-rank group, checkpoints under $TMPDIR."""
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as train_cli
+    root = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    buf = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            hist = train_cli.main([*TRAIN_CLI_ARGS, "--ckpt-dir", root])
+        dt = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"    | {line}")
+    require([h[0] for h in hist] == [1, 2] and all(
+        math.isfinite(h[1]) for h in hist), f"(i) history {hist}")
+    require("elastic mesh: {'data': 1, 'model': 1}" in lines,
+            "(i) the CLI did not report its mesh")
+    print(f"  (i) launch.train --sharded: 2 steps in {dt:.2f} s")
+
+
 @phase("train")
 def train_phase(torch):
     """LM training at published widths: hymba-1.5b whole, qwen2-moe-a2.7b
     cut to 2 layers (1 for the Trainer's fault tolerance and remat), and
     hymba cut to 4 layers for those and the ssd_scan guard (docstring,
-    item 18)."""
+    item 18); then (g)-(i), the tensor- and expert-parallel path at degree
+    1 in a one-rank NCCL group (``make_elastic_mesh()`` on the one card)."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.layers import ShardCtx
+    with mesh_mod.process_group(device="cuda"):
+        ctx = ShardCtx(mesh=mesh_mod.make_elastic_mesh(), dp_axes=("data",))
+        require(mesh_shape_of(ctx) == {"data": 1, "model": 1},
+                f"(g) elastic mesh {mesh_shape_of(ctx)} on one card")
+        _train_body(torch, ctx)
+
+
+def _train_body(torch, ctx):
     import gc
 
     from repro_torch.kernels import runtime
@@ -1693,6 +1831,10 @@ def train_phase(torch):
             f"positive")
     state = _train_readings(torch, name, cfg, step, state, ds, times,
                             TRAIN_MOE_SEQ)
+    t_g = time.perf_counter()
+    _sharded_steps(torch, name, cfg, step, state,
+                   ds.batch_at(TRAIN_STEPS + 1, device="cuda"), ctx, opt)
+    print(f"  {name}: (g) in {time.perf_counter() - t_g:.2f} s")
     del state, batch, m
     free()
     print(f"  {name} in {time.perf_counter() - t_model:.2f} s")
@@ -1716,6 +1858,11 @@ def train_phase(torch):
                             TRAIN_LR)
     cfg = cfg.scaled(num_layers=TRAIN_FT_LAYERS)
     params = _resume_and_remat(torch, name, cfg, ds, opt, exact=False)
+    t_g = time.perf_counter()
+    _sharded_steps(torch, name, cfg, make_train_step(cfg, opt),
+                   (params, opt.init(params), zero()),
+                   ds.batch_at(1, device="cuda"), ctx, opt)
+    print(f"  {name}: (g) in {time.perf_counter() - t_g:.2f} s")
     batch = ds.batch_at(0, device="cuda")
     kcfg = cfg.scaled(use_ssd_kernel=True)
     before = runtime.launch_counts().get("ssd_scan", 0)
@@ -1737,6 +1884,12 @@ def train_phase(torch):
     free()
     print(f"  {name} ({TRAIN_FT_LAYERS} layers) in "
           f"{time.perf_counter() - t_model:.2f} s")
+    t_h = time.perf_counter()
+    _sharded_prefill(torch, ctx)
+    free()
+    _sharded_cli(torch)
+    free()
+    print(f"  (h), (i) in {time.perf_counter() - t_h:.2f} s")
 
 
 # ---------------------------------------------------------------------------

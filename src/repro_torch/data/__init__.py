@@ -1,2 +1,3 @@
 from repro_torch.data.pipeline import (DataState,  # noqa: F401
-                                       SyntheticLMDataset, shard_assignment)
+                                       SyntheticLMDataset, TensorSpec,
+                                       make_batch_specs, shard_assignment)

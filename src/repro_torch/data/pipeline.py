@@ -11,12 +11,15 @@
   (seed, step, host, num_hosts).  ``batch_at`` is the interface a
   tokenized-corpus loader would implement.
 
-The JAX package's ``make_batch_specs`` (shapes and partition specs of a
-sharded batch) comes with multi-GPU training.
+On a mesh each data rank takes its own equal rows (``rank_batch_at``),
+and ``make_batch_specs`` gives the global batch's shapes, dtypes and
+partition specs without allocating it (the JAX package's
+``ShapeDtypeStruct`` / ``PartitionSpec`` pairs).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -80,6 +83,40 @@ class SyntheticLMDataset:
         else:
             batch["tokens"] = torch.from_numpy(tokens).to(device)
         return batch
+
+
+    def rank_batch_at(self, step: int, ctx=None, device=None) -> dict:
+        """This data rank's rows of batch ``step`` under ``ctx`` (a
+        ``layers.ShardCtx``; the whole batch without one).  Every rank of
+        the data axes holds the same number of rows, so the mean over the
+        group of the ranks' row means is the batch mean."""
+        if ctx is None:
+            return self.batch_at(step, device=device)
+        if self.global_batch % ctx.dp_size:
+            raise ValueError(f"global batch {self.global_batch} does not "
+                             f"split evenly over {ctx.dp_size} data ranks")
+        return self.batch_at(step, ctx.dp_rank, ctx.dp_size, device=device)
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor not allocated (JAX: ShapeDtypeStruct)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def make_batch_specs(cfg, shape, dp_axes) -> dict:
+    """{name: (TensorSpec, PartitionSpec)} for one global batch of
+    ``shape`` (a ``ShapeConfig``), rows split over ``dp_axes``."""
+    from repro_torch.models.parallel import P
+    b, t = shape.global_batch, shape.seq_len
+    dp = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    specs = {"labels": (TensorSpec((b, t), torch.int32), P(dp, None))}
+    if cfg.embedding_input:
+        specs["embeds"] = (TensorSpec((b, t, cfg.d_model), torch.bfloat16),
+                           P(dp, None, None))
+    else:
+        specs["tokens"] = (TensorSpec((b, t), torch.int32), P(dp, None))
+    return specs
 
 
 def shard_assignment(global_batch: int, host: int, num_hosts: int):

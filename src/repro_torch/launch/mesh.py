@@ -30,6 +30,8 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.models.parallel import mesh_shape
+
 AXES = ("data", "model")
 DP_AXES = ("pod", "data")
 DEFAULT_TIMEOUT_S = 120.0
@@ -181,11 +183,6 @@ def make_smoke_mesh():
     """(1, 1) mesh on rank 0."""
     _world()
     return _mesh((1, 1))
-
-
-def mesh_shape(mesh) -> dict:
-    """``{axis name: size}`` in axis order (JAX ``mesh.shape``)."""
-    return {a: int(mesh.size(i)) for i, a in enumerate(mesh.mesh_dim_names)}
 
 
 def mesh_signature(mesh) -> tuple | None:

@@ -1,21 +1,121 @@
-"""Shared LM layers: norms, RoPE, GQA attention (full-sequence, banded,
-decode over a linear or a ring-buffer cache), the int8 KV grid, and the
-FFN with the TIPS hook (port of ``repro.models.layers``).
+"""Shared LM layers: the sharding context, norms, RoPE, GQA attention
+(full-sequence, banded, decode over a linear or a ring-buffer cache), the
+int8 KV grid, and the FFN with the TIPS hook (port of
+``repro.models.layers``).
 
-The port has no mesh yet, so there is no ``ShardCtx``, no ``ctx``
-argument, no ``maybe_cs`` and no ``*_param_specs``: they come with
-multi-GPU serving (ROADMAP.md, Queue 1 item 4b).  Casts mirror the JAX
-package's: projections and the P V product in the activation dtype, the
-softmax in float32.
+``ShardCtx`` carries a (data, model) mesh of ``launch.mesh`` through the
+model.  The JAX package constrains activations with it and lets GSPMD
+partition one program; here each rank runs its own shard and the
+model-axis collectives are explicit (``models/parallel.py``).  A block
+given ``ctx`` runs split: its weights are this rank's shard
+(column-parallel ``wq/wk/wv/w_gate/w_up``, row-parallel ``wo/w_down``),
+its input passes ``copy_to_tp`` and its output ``reduce_from_tp``.  It
+runs split exactly where its layout (``attn_layout``, ``ffn_layout``)
+splits its weights (``parallel.split_ctx``); one whose heads or width do
+not divide the model axis runs replicated, the unsharded code on whole
+weights, where GSPMD would pad.  The spec trees (``attn_param_specs``,
+``ffn_param_specs``) are the JAX package's, as data.  Casts mirror the
+JAX package's: projections and the P V product in the activation dtype,
+the softmax in float32.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import tips as tips_mod
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.parallel import (P, Split, copy_to_tp, mesh_shape,
+                                         reduce_from_tp, split_ctx,
+                                         tp_all_reduce)
+
+
+# ----------------------------------------------------------------------------
+# Sharding context
+# ----------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """The mesh and the roles of its axes, carried through the model.
+
+    ``tp_axis=None`` folds tensor parallelism away (TP-fold): model code
+    keeps writing the literal "model" in its specs and ``spec`` rewrites it
+    to replicated, while the physical model axis serves as extra data
+    parallelism through ``dp_axes``.  Built on every rank of the mesh at
+    once (a data group over several axes is a new process group)."""
+    mesh: object                       # torch DeviceMesh, axes (data, model)
+    dp_axes: tuple                     # ("data",) or ("data", "model")
+    tp_axis: str | None = "model"
+
+    def __post_init__(self):
+        names = tuple(self.mesh.mesh_dim_names)
+        coord = self.mesh.get_coordinate()
+        if coord is None:
+            raise ValueError(f"rank {dist.get_rank()} is not on the mesh "
+                             f"{mesh_shape(self.mesh)}")
+        shape = mesh_shape(self.mesh)
+        dp_rank, dp_size = 0, 1
+        for a in self.dp_axes:
+            dp_rank = dp_rank * shape[a] + int(coord[names.index(a)])
+            dp_size *= shape[a]
+        if len(self.dp_axes) == 1:
+            dp_group = self.mesh.get_group(self.dp_axes[0])
+        else:
+            if set(self.dp_axes) != set(names):
+                raise ValueError(f"dp_axes {self.dp_axes} over more than "
+                                 f"one axis must cover the mesh {names}")
+            ranks = sorted(int(r) for r in self.mesh.mesh.flatten())
+            dp_group = (dist.group.WORLD
+                        if ranks == list(range(dist.get_world_size()))
+                        else dist.new_group(ranks))
+        tp = self.tp_axis
+        for k, v in (("dp_rank", dp_rank), ("dp_size", dp_size),
+                     ("dp_group", dp_group),
+                     ("tp_group", self.mesh.get_group(tp) if tp else None),
+                     ("tp_rank", int(coord[names.index(tp)]) if tp else 0),
+                     ("tp_size", shape[tp] if tp else 1)):
+            object.__setattr__(self, k, v)
+
+    @property
+    def dp(self):
+        return self.dp_axes if len(self.dp_axes) > 1 else self.dp_axes[0]
+
+    def spec(self, *spec) -> P:
+        """``spec`` with the literal "model" rewritten to the model axis
+        (to replicated under the TP-fold)."""
+        return P(*(self.tp_axis if s == "model" else s for s in spec))
+
+    def cs(self, x, *spec):
+        """The JAX package's sharding constraint.  Here every rank already
+        holds the shard its code computes, so ``x`` passes as it is; the
+        spec is resolved and checked against the mesh's axes."""
+        names = set(self.mesh.mesh_dim_names)
+        for s in self.spec(*spec):
+            for a in (s if isinstance(s, tuple) else (s,)):
+                if a is not None and a not in names:
+                    raise ValueError(f"cs: no mesh axis {a!r} in {names}")
+        return x
+
+
+def maybe_cs(ctx: Optional[ShardCtx], x, *spec):
+    return ctx.cs(x, *spec) if ctx is not None else x
+
+
+def sink_cas(probs_sink: torch.Tensor, cfg: ArchConfig, ctx):
+    """The TIPS sink CAS: each query's attention to the sink averaged over
+    ALL heads.  ``probs_sink`` holds this rank's heads in its dims 1 and 2;
+    over a model axis of more than one rank the local sums are all-reduced
+    before the division, so every rank builds the same TIPS mask.  There,
+    with TIPS off, nothing reads it and it is not reduced: None."""
+    if ctx is None or ctx.tp_size == 1:
+        return probs_sink.mean(dim=(1, 2))
+    if not cfg.tips:
+        return None
+    part = probs_sink.sum(dim=(1, 2)).detach()
+    return tp_all_reduce(part, ctx.tp_group) / cfg.num_heads
 
 
 # ----------------------------------------------------------------------------
@@ -115,6 +215,20 @@ def init_attn_params(generator: torch.Generator, cfg: ArchConfig, dtype):
             "wv": normal((d, kv * hd)), "wo": normal((h * hd, d))}
 
 
+def attn_param_specs(cfg: ArchConfig):
+    """PartitionSpecs (without the stacked layer axis)."""
+    return {"wq": P(None, "model"), "wk": P(None, "model"),
+            "wv": P(None, "model"), "wo": P("model", None)}
+
+
+def attn_layout(cfg: ArchConfig, tp: int):
+    """How ``init_attn_params``' leaves split (None: replicated): by
+    heads where both head counts divide the model axis."""
+    if cfg.num_heads % tp or cfg.num_kv_heads % tp:
+        return {k: None for k in ("wq", "wk", "wv", "wo")}
+    return {"wq": Split(1), "wk": Split(1), "wv": Split(1), "wo": Split(0)}
+
+
 def _causal_mask(tq, tk, offset=0, device=None):
     q = torch.arange(tq, device=device)[:, None] + offset
     k = torch.arange(tk, device=device)[None, :]
@@ -128,9 +242,11 @@ def _window_mask(tq, tk, window, offset=0, device=None):
 
 
 def _project(x, p, cfg: ArchConfig, positions):
-    """q (B, T, H, hd), k and v (B, T, KV, hd); RoPE on q and k."""
+    """q (B, T, H, hd), k and v (B, T, KV, hd); RoPE on q and k.  H and KV
+    are the heads ``p`` holds (this rank's, under a split ``ctx``)."""
     b, t, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    h, kv = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     q = torch.einsum("btd,dk->btk", x, p["wq"]).reshape(b, t, h, hd)
     k = torch.einsum("btd,dk->btk", x, p["wk"]).reshape(b, t, kv, hd)
     v = torch.einsum("btd,dk->btk", x, p["wv"]).reshape(b, t, kv, hd)
@@ -141,7 +257,8 @@ def _project(x, p, cfg: ArchConfig, positions):
 
 def gqa_attention(x, p, cfg: ArchConfig, positions, window: int = 0,
                   prune_threshold: float = 0.0, q_chunk: int = 1024,
-                  global_flag: bool | None = None):
+                  global_flag: bool | None = None, *,
+                  ctx: Optional[ShardCtx] = None):
     """Full-sequence causal GQA attention.  (B, T, d) -> (out (B, T, d),
     sink CAS (B, T) float32, (k, v)).
 
@@ -151,10 +268,14 @@ def gqa_attention(x, p, cfg: ArchConfig, positions, window: int = 0,
     flag is False.  For T > q_chunk (T a multiple of it) the score block
     runs over query chunks, so at most (B, H, q_chunk, T) scores exist at
     a time.  Grouped-query einsums: KV is never repeated to full heads.
+    Where ``attn_layout`` splits, ``p`` holds this rank's heads, k
+    and v are this rank's, and the sink CAS averages over all heads.
     """
     b, t, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = _project(x, p, cfg, positions)
+    hd = cfg.head_dim
+    ctx = split_ctx(ctx, attn_layout, cfg)
+    q, k, v = _project(copy_to_tp(x, ctx), p, cfg, positions)
+    h, kv = q.shape[2], k.shape[2]
     g = h // kv
     scale = math.sqrt(float(hd))
 
@@ -176,33 +297,36 @@ def gqa_attention(x, p, cfg: ArchConfig, positions, window: int = 0,
         if prune_threshold > 0.0:
             probs = torch.where(probs >= prune_threshold, probs, 0.0)
         # TIPS sink CAS: attention of every query to the first (sink)
-        # token, averaged over heads
-        sink = probs[..., 0].mean(dim=(1, 2))                 # (b, qc)
+        # token (averaged over heads below)
         ob = torch.einsum("bkgts,bskd->btkgd", probs.to(x.dtype), v)
-        return ob.reshape(b, qc, h * hd), sink
+        return ob.reshape(b, qc, h * hd), probs[..., 0]
 
     if t > q_chunk and t % q_chunk == 0:
         outs, sinks = zip(*(block(q[:, i:i + q_chunk], i)
                             for i in range(0, t, q_chunk)))
-        out, sink_cas = torch.cat(outs, dim=1), torch.cat(sinks, dim=1)
+        out, sink = torch.cat(outs, dim=1), torch.cat(sinks, dim=-1)
     else:
-        out, sink_cas = block(q, 0)
+        out, sink = block(q, 0)
+    cas = sink_cas(sink, cfg, ctx)                           # (b, t)
     out = torch.einsum("btk,kd->btd", out, p["wo"])
-    return out, sink_cas, (k, v)
+    return reduce_from_tp(out, ctx), cas, (k, v)
 
 
-def swa_attention_chunked(x, p, cfg: ArchConfig, positions, window: int):
+def swa_attention_chunked(x, p, cfg: ArchConfig, positions, window: int,
+                          *, ctx: Optional[ShardCtx] = None):
     """Banded (sliding-window) attention, sub-quadratic: queries are
     chunked at ``window`` and each chunk attends to itself and the
     previous chunk under the band mask.  No sink CAS (the sink leaves the
-    band)."""
+    band).  ``ctx`` as in ``gqa_attention``."""
     b, t, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     if t % window:
         raise ValueError(f"swa_attention_chunked: window {window} does not "
                          f"divide T={t}")
     nc = t // window
-    q, k, v = _project(x, p, cfg, positions)
+    ctx = split_ctx(ctx, attn_layout, cfg)
+    q, k, v = _project(copy_to_tp(x, ctx), p, cfg, positions)
+    h, kv = q.shape[2], k.shape[2]
     g = h // kv
     qc = q.reshape(b, nc, window, kv, g, hd)
     kc = k.reshape(b, nc, window, kv, hd)
@@ -225,7 +349,7 @@ def swa_attention_chunked(x, p, cfg: ArchConfig, positions, window: int):
     probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
     out = torch.einsum("bckgls,bcskh->bclkgh", probs, vcat)
     out = out.reshape(b, t, h * hd)
-    return torch.einsum("btk,kd->btd", out, p["wo"])
+    return reduce_from_tp(torch.einsum("btk,kd->btd", out, p["wo"]), ctx)
 
 
 # int8 KV-cache grid: RoPE'd keys/values from unit-scale projections sit
@@ -258,7 +382,7 @@ def _kv_load(x: torch.Tensor) -> torch.Tensor:
 
 
 def decode_attention(x, p, cfg: ArchConfig, cache_k, cache_v, position: int,
-                     window: int = 0):
+                     window: int = 0, *, ctx: Optional[ShardCtx] = None):
     """Single-token decode with a KV cache.
 
     x: (B, 1, d); cache_k/v: (B, S, kv, hd); ``position``: the same for
@@ -270,13 +394,16 @@ def decode_attention(x, p, cfg: ArchConfig, cache_k, cache_v, position: int,
     As in the JAX package, q and the probabilities are rounded to
     bfloat16 whatever the model dtype, then promoted to the loaded
     cache's dtype for the products (``torch.einsum`` takes no mixed
-    dtypes, so the promotion is written out).
+    dtypes, so the promotion is written out).  Under a split ``ctx`` the
+    caches hold this rank's kv heads.
     """
     b = x.shape[0]
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     s = cache_k.shape[1]
+    ctx = split_ctx(ctx, attn_layout, cfg)
     pos = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
-    q, knew, vnew = _project(x, p, cfg, pos)
+    q, knew, vnew = _project(copy_to_tp(x, ctx), p, cfg, pos)
+    h, kv = q.shape[2], knew.shape[2]
     cache_k[:, position] = _kv_store(knew[:, 0], cache_k.dtype)
     cache_v[:, position] = _kv_store(vnew[:, 0], cache_v.dtype)
 
@@ -291,16 +418,18 @@ def decode_attention(x, p, cfg: ArchConfig, cache_k, cache_v, position: int,
         valid &= idx > position - window
     scores = scores.masked_fill(~valid, -1e30)
     probs = torch.softmax(scores.to(torch.float32), dim=-1)
-    sink_cas = probs[..., 0].mean(dim=(1, 2))[:, None]      # (b, 1)
+    cas = sink_cas(probs[..., 0], cfg, ctx)
+    cas = None if cas is None else cas[:, None]             # (b, 1)
     probs = probs.to(torch.bfloat16)
     probs = probs.to(torch.promote_types(probs.dtype, vc.dtype))
     out = torch.einsum("bkgs,bskd->bkgd", probs, vc).to(x.dtype)
     out = torch.einsum("btk,kd->btd", out.reshape(b, 1, h * hd), p["wo"])
-    return out, cache_k, cache_v, sink_cas
+    return reduce_from_tp(out, ctx), cache_k, cache_v, cas
 
 
 def decode_attention_slot(x, p, cfg: ArchConfig, cache_k, cache_v,
-                          position: int, slot: int, window: int = 0):
+                          position: int, slot: int, window: int = 0, *,
+                          ctx: Optional[ShardCtx] = None):
     """Decode attention over a ring-buffer cache (hybrid SWA layers).
 
     The cache holds W slots; the new KV is written in place at ``slot``
@@ -308,12 +437,15 @@ def decode_attention_slot(x, p, cfg: ArchConfig, cache_k, cache_v,
     W = max_seq).  RoPE is applied at write time, so slots are
     position-agnostic; validity comes from the absolute position window.
     No bfloat16 detour here: q and the probabilities stay in x's dtype.
+    ``ctx`` as in ``decode_attention``.
     """
     b = x.shape[0]
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     w = cache_k.shape[1]
+    ctx = split_ctx(ctx, attn_layout, cfg)
     pos = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
-    q, knew, vnew = _project(x, p, cfg, pos)
+    q, knew, vnew = _project(copy_to_tp(x, ctx), p, cfg, pos)
+    h, kv = q.shape[2], knew.shape[2]
     cache_k[:, slot] = knew[:, 0].to(cache_k.dtype)
     cache_v[:, slot] = vnew[:, 0].to(cache_v.dtype)
 
@@ -335,10 +467,11 @@ def decode_attention_slot(x, p, cfg: ArchConfig, cache_k, cache_v,
     scores = scores.masked_fill(~valid, -1e30)
     probs = torch.softmax(scores.to(torch.float32), dim=-1)
     # sink CAS: meaningful on global layers only (slot 0 holds position 0)
-    sink_cas = probs[..., 0].mean(dim=(1, 2))[:, None]
+    cas = sink_cas(probs[..., 0], cfg, ctx)
+    cas = None if cas is None else cas[:, None]
     out = torch.einsum("bkgs,bskd->bkgd", probs.to(x.dtype), cache_v)
     out = torch.einsum("btk,kd->btd", out.reshape(b, 1, h * hd), p["wo"])
-    return out, cache_k, cache_v, sink_cas
+    return reduce_from_tp(out, ctx), cache_k, cache_v, cas
 
 
 # ----------------------------------------------------------------------------
@@ -358,21 +491,42 @@ def init_ffn_params(generator: torch.Generator, d_model: int, d_ff: int,
     return p
 
 
-def ffn(x, p, activation: str, tips_important=None):
+def ffn_param_specs(activation: str):
+    p = {"w_up": P(None, "model"), "w_down": P("model", None)}
+    if activation == "swiglu":
+        p["w_gate"] = P(None, "model")
+    return p
+
+
+def ffn_layout(d_ff: int, activation: str, tp: int):
+    """How ``init_ffn_params``' leaves split (None: replicated)."""
+    ok = d_ff % tp == 0
+    p = {"w_up": Split(1) if ok else None, "w_down": Split(0) if ok else None}
+    if activation == "swiglu":
+        p["w_gate"] = Split(1) if ok else None
+    return p
+
+
+def ffn(x, p, activation: str, tips_important=None, *,
+        ctx: Optional[ShardCtx] = None):
     """(B, T, d) -> (B, T, d).
 
     ``tips_important``: bool (B, T); those rows keep INT12, the others
     fake-quantise to INT6 on the shared per-sample scale grid before the
-    FFN matmuls (TIPS)."""
+    FFN matmuls (TIPS).  ``ctx``: the FFN runs split, ``p`` holding this
+    rank's columns of ``w_gate`` / ``w_up`` and rows of ``w_down`` (the
+    caller passes ``split_ctx(ctx, ffn_layout, d_ff, activation)``)."""
     if tips_important is not None:
         x = tips_mod.apply_precision_mask(x, tips_important)
+    x = copy_to_tp(x, ctx)
     if activation == "swiglu":
         gate = torch.einsum("btd,df->btf", x, p["w_gate"])
         up = torch.einsum("btd,df->btf", x, p["w_up"])
         hmid = silu(gate) * up
     else:
         hmid = gelu(torch.einsum("btd,df->btf", x, p["w_up"]))
-    return torch.einsum("btf,fd->btd", hmid, p["w_down"])
+    return reduce_from_tp(torch.einsum("btf,fd->btd", hmid, p["w_down"]),
+                          ctx)
 
 
 def tips_sink_mask(x, p_attn, cfg: ArchConfig, probs_sink):

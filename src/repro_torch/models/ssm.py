@@ -12,6 +12,21 @@ Shapes follow the JAX package: x (B, T, H, P), dt (B, T, H), A (H,)
 negative reals, B/C (B, T, N) with one group.  Casts mirror the JAX
 package's: projections, the conv and the gated norm's output in the model
 dtype; dt, A, D, the scan and the state in float32.
+
+On a mesh the mixer runs split by HEADS, where ``ssm_heads`` divides the
+model axis (``ssm_layout``).  That is not the layout of the JAX spec tree
+(``ssm_param_specs``, kept verbatim): its ``in_xbc`` is ``P(None,
+"model")`` over ``d_inner + 2 n`` channels, and a contiguous cut there
+would split across the x / B / C segments, which GSPMD handles by moving
+data.  Here a rank holds, for its heads, the columns of ``in_z``, the x
+columns of ``in_xbc`` with their conv channels, the columns of ``in_dt``,
+``A_log`` / ``D`` / ``dt_bias``, ``gate_norm`` and the rows of
+``out_proj``; B and C (shared by every head) it computes whole.  The
+gated norm over ``d_inner`` all-reduces its sum of squares, and
+``out_proj`` is row-parallel.  The decode cache follows: state (B,
+H / tp, P, N), conv window over [this rank's x channels | B | C]; the
+spec tree's cache splits P instead.  Elsewhere the mixer runs replicated.
+The kernel route hands ``ssd_scan_fused`` this rank's heads.
 """
 from __future__ import annotations
 
@@ -21,6 +36,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd_scan.ops import pick_chunk, ssd_scan_fused
 from repro_torch.models.layers import rms_norm, silu
+from repro_torch.models.parallel import (P, Split, copy_to_tp,
+                                         reduce_from_tp, split_ctx,
+                                         sum_over_tp)
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -133,6 +151,64 @@ def init_ssm_params(generator: torch.Generator, cfg: ArchConfig, dtype):
     }
 
 
+def ssm_param_specs(cfg: ArchConfig):
+    return {
+        "in_z": P(None, "model"),
+        "in_xbc": P(None, "model"),
+        "in_dt": P(None, None),         # heads (24/50) rarely divide TP=16
+        "conv_w": P(None, "model"),
+        "conv_b": P("model"),
+        "A_log": P(None),
+        "D": P(None),
+        "dt_bias": P(None),
+        "gate_norm": P("model"),
+        "out_proj": P("model", None),
+    }
+
+
+def ssm_layout(cfg: ArchConfig, tp: int):
+    """How ``init_ssm_params``' leaves split: by heads where they divide
+    the model axis (module docstring), else None (replicated)."""
+    names = ("in_z", "in_xbc", "in_dt", "conv_w", "conv_b", "A_log", "D",
+             "dt_bias", "gate_norm", "out_proj")
+    if cfg.ssm_heads % tp:
+        return dict.fromkeys(names)
+    di = cfg.d_inner
+    return {"in_z": Split(1), "in_xbc": Split(1, di), "in_dt": Split(1),
+            "conv_w": Split(1, di), "conv_b": Split(0, di),
+            "A_log": Split(0), "D": Split(0), "dt_bias": Split(0),
+            "gate_norm": Split(0), "out_proj": Split(0)}
+
+
+def _gated_norm(y, z, scale, cfg: ArchConfig, ctx):
+    """``rms_norm(y * silu(z), scale)`` over d_inner; split, the sum of
+    squares of this rank's channels is all-reduced first."""
+    if ctx is None or ctx.tp_size == 1:
+        return rms_norm(y * silu(z), scale, cfg.norm_eps)
+    x = y * silu(z)
+    xf = x.to(torch.float32)
+    var = sum_over_tp(xf.square().sum(dim=-1, keepdim=True), ctx) \
+        / cfg.d_inner
+    out = xf * torch.rsqrt(var + cfg.norm_eps)
+    return (out * scale.to(torch.float32)).to(x.dtype)
+
+
+def _in_proj(x, p, ctx):
+    """(z, xBC, dt) projections of (..., d) ``x``.  Split over more than
+    one rank, the x channels come from ``copy_to_tp(x)`` and B, C (whole
+    on every rank) from ``x`` itself, since their gradient is whole."""
+    xp = copy_to_tp(x, ctx)
+    z = torch.einsum("...d,dk->...k", xp, p["in_z"])
+    dt = torch.einsum("...d,dk->...k", xp, p["in_dt"])
+    if ctx is None or ctx.tp_size == 1:
+        return z, torch.einsum("...d,dk->...k", xp, p["in_xbc"]), dt
+    dl = p["in_z"].shape[-1]
+    xbc = torch.cat([torch.einsum("...d,dk->...k", xp, p["in_xbc"][:, :dl]),
+                     torch.einsum("...d,dk->...k", x, p["in_xbc"][:, dl:])],
+                    dim=-1)
+    return z, xbc, dt
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: log(1 + e^x) with no linear cut-off."""
     return torch.logaddexp(x, torch.zeros_like(x))
@@ -150,18 +226,22 @@ def _causal_conv(xBC, w, b):
 
 
 def mamba_mixer(x, p, cfg: ArchConfig, chunk: int = 128,
-                return_cache: bool = False):
+                return_cache: bool = False, *, ctx=None):
     """Full-sequence Mamba-2 mixer: (B, T, d) -> (B, T, d); with
-    ``return_cache`` also the decode cache {"state", "conv"}."""
+    ``return_cache`` also the decode cache {"state", "conv"}.  ``ctx``:
+    split by heads (module docstring), ``p`` and the cache this rank's."""
     b, t, d = x.shape
-    di, n, h, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z = torch.einsum("btd,dk->btk", x, p["in_z"])
-    xBC_raw = torch.einsum("btd,dk->btk", x, p["in_xbc"])
-    dt = torch.einsum("btd,dk->btk", x, p["in_dt"])
+    n, hd = cfg.ssm_state, cfg.ssm_head_dim
+    ctx = split_ctx(ctx, ssm_layout, cfg)
+    di = p["in_z"].shape[-1]                  # this rank's channels
+    h = di // hd
+    z, xBC_raw, dt = _in_proj(x, p, ctx)
     xBC = silu(_causal_conv(xBC_raw, p["conv_w"], p["conv_b"]))
     xs = xBC[..., :di].reshape(b, t, h, hd)
     Bm = xBC[..., di:di + n]
     Cm = xBC[..., di + n:]
+    if ctx is not None and ctx.tp_size > 1:
+        Bm, Cm = copy_to_tp(Bm, ctx), copy_to_tp(Cm, ctx)
     dt = _softplus(dt.to(torch.float32) + p["dt_bias"][None, None, :])
     A = -torch.exp(p["A_log"])
     ck = pick_chunk(t, chunk)
@@ -173,8 +253,8 @@ def mamba_mixer(x, p, cfg: ArchConfig, chunk: int = 128,
                                   Cm.to(torch.float32), ck)
     y = y + xs.to(torch.float32) * p["D"][None, None, :, None]
     y = y.reshape(b, t, di).to(x.dtype)
-    y = rms_norm(y * silu(z), p["gate_norm"], cfg.norm_eps)
-    out = torch.einsum("btk,kd->btd", y, p["out_proj"])
+    y = _gated_norm(y, z, p["gate_norm"], cfg, ctx)
+    out = reduce_from_tp(torch.einsum("btk,kd->btd", y, p["out_proj"]), ctx)
     if return_cache:
         w = cfg.ssm_conv_width
         cache = {"state": final_state,
@@ -183,9 +263,13 @@ def mamba_mixer(x, p, cfg: ArchConfig, chunk: int = 128,
     return out
 
 
-def init_ssm_cache(cfg: ArchConfig, batch: int, dtype, device=None):
-    """Decode cache per layer: recurrent state + conv window."""
+def init_ssm_cache(cfg: ArchConfig, batch: int, dtype, device=None,
+                   ctx=None):
+    """Decode cache per layer: recurrent state + conv window (this rank's
+    heads and channels under a split ``ctx``)."""
     di, n, h, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    if split_ctx(ctx, ssm_layout, cfg) is not None:
+        di, h = di // ctx.tp_size, h // ctx.tp_size
     return {
         "state": torch.zeros((batch, h, hd, n), dtype=torch.float32,
                              device=device),
@@ -194,14 +278,15 @@ def init_ssm_cache(cfg: ArchConfig, batch: int, dtype, device=None):
     }
 
 
-def mamba_decode(x, cache, p, cfg: ArchConfig):
-    """One-token decode: x (B, 1, d) -> (out (B, 1, d), new cache)."""
+def mamba_decode(x, cache, p, cfg: ArchConfig, *, ctx=None):
+    """One-token decode: x (B, 1, d) -> (out (B, 1, d), new cache);
+    ``ctx`` as in ``mamba_mixer``."""
     b = x.shape[0]
-    di, n, h, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    x0 = x[:, 0]
-    z = x0 @ p["in_z"]
-    xBC = x0 @ p["in_xbc"]
-    dt = x0 @ p["in_dt"]
+    n, hd = cfg.ssm_state, cfg.ssm_head_dim
+    ctx = split_ctx(ctx, ssm_layout, cfg)
+    di = p["in_z"].shape[-1]
+    h = di // hd
+    z, xBC, dt = _in_proj(x[:, 0], p, ctx)
     # conv over the rolling window
     win = torch.cat([cache["conv"], xBC[:, None, :]], dim=1)
     new_conv = win[:, 1:, :]
@@ -210,11 +295,13 @@ def mamba_decode(x, cache, p, cfg: ArchConfig):
     xs = xBC[..., :di].reshape(b, h, hd).to(torch.float32)
     Bm = xBC[..., di:di + n].to(torch.float32)
     Cm = xBC[..., di + n:].to(torch.float32)
+    if ctx is not None and ctx.tp_size > 1:
+        Bm, Cm = copy_to_tp(Bm, ctx), copy_to_tp(Cm, ctx)
     dt = _softplus(dt.to(torch.float32) + p["dt_bias"][None, :])
     A = -torch.exp(p["A_log"])
     y, new_state = ssd_decode_step(xs, dt, A, Bm, Cm, cache["state"])
     y = y + xs * p["D"][None, :, None]
     y = y.reshape(b, di).to(x.dtype)
-    y = rms_norm(y * silu(z), p["gate_norm"], cfg.norm_eps)
-    out = (y @ p["out_proj"])[:, None, :]
+    y = _gated_norm(y, z, p["gate_norm"], cfg, ctx)
+    out = reduce_from_tp(y @ p["out_proj"], ctx)[:, None, :]
     return out, {"state": new_state, "conv": new_conv}

@@ -6,6 +6,13 @@ trees and leaves its arguments as they are), so it can be held against
 the JAX package's step for step: global-norm clip, bias correction and
 decoupled weight decay in float32, the new parameter cast back to the
 parameter's dtype.
+
+On a mesh the moments follow the parameter shards (``init`` of this
+rank's shard), as the JAX package's same PartitionSpecs shard them, and
+the global norm sums the squares of the split parts over the model axis
+and counts each whole (replicated) part once: a whole leaf, and the
+replicated tail of a ``Split`` with a ``head`` (a Mamba-2 ``in_xbc``'s B
+and C channels, on every rank).
 """
 from __future__ import annotations
 
@@ -13,8 +20,10 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as tree_util
+from repro_torch.models.parallel import all_reduced
 
 
 class AdamWState(NamedTuple):
@@ -44,13 +53,32 @@ class AdamW:
     def _lr(self, step):
         return self.lr(step) if callable(self.lr) else self.lr
 
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, split=None,
+               tp_group=None):
         """-> (new params, new state, the global gradient norm before the
-        clip)."""
+        clip).  ``split``: for each leaf in flatten order, its
+        ``parallel.Split`` over ``tp_group`` (this rank holds a shard), or
+        None (whole)."""
         flat_g = tree_util.leaves(grads)
-        # the global norm, leaf sums added in flatten order
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                               for g in flat_g))
+
+        def sumsq(g):
+            return torch.sum(torch.square(g.to(torch.float32)))
+        if split is None or not any(split):
+            # the global norm, leaf sums added in flatten order
+            gnorm = torch.sqrt(sum(sumsq(g) for g in flat_g))
+        else:
+            tp = dist.get_world_size(tp_group)
+            zero = torch.zeros((), dtype=torch.float32,
+                               device=flat_g[0].device)
+            mine, whole = zero, zero
+            for g, s in zip(flat_g, split):
+                part, tail = (None, g) if s is None else s.parts(g, tp)
+                if part is not None:
+                    mine = mine + sumsq(part)
+                if tail is not None:
+                    whole = whole + sumsq(tail)
+            gnorm = torch.sqrt(all_reduced(mine, tp_group, "tp_all_reduce")
+                               + whole)
         scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         step = state.step + 1
         b1c = 1.0 - torch.pow(self.b1, step.to(torch.float32))

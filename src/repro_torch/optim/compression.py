@@ -4,9 +4,11 @@
 INT8 with error feedback: each step quantizes (grad + residual) to int8
 on one scale per leaf, carries the int8 payload and its scale (what the
 wire would carry, a quarter of the float32 bytes), and keeps the
-quantization error for the next step.  With one process there is no
-all-reduce yet (it comes with multi-GPU training); ``error_feedback_update``
-is the round trip the trainer applies.
+quantization error for the next step.  As in the JAX package, the
+trainer compresses after the data-parallel reduction, so
+``error_feedback_update`` is the round trip it applies; a leaf split over
+the model axis takes its scale from the whole leaf's amax (a MAX over the
+axis), as the unsplit leaf would.
 
 Scales are ``max(amax, 1e-12) * float32(1 / 127)``: inside ``jit`` XLA
 turns the JAX package's division by the constant 127 into that product,
@@ -15,29 +17,35 @@ and keeps ``x / scale`` (not a constant) a true division.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as tree_util
+from repro_torch.models.parallel import all_reduced
 
 _INV_QMAX = 1.0 / 127.0
 
 
-def _q(x: torch.Tensor):
+def _q(x: torch.Tensor, tp_group=None):
     amax = torch.max(torch.abs(x))
+    if tp_group is not None:
+        amax = all_reduced(amax, tp_group, "tp_all_reduce", dist.ReduceOp.MAX)
     scale = torch.clamp_min(amax, 1e-12) * _INV_QMAX
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
-def compress_gradients(grads, residual=None):
+def compress_gradients(grads, residual=None, split=None, tp_group=None):
     """-> (a tree of (int8 payload, float32 scale) pairs, the new float32
-    residual tree)."""
+    residual tree).  ``split`` / ``tp_group`` as in ``AdamW.update``."""
     if residual is None:
         residual = tree_util.tree_map(
             lambda g: torch.zeros_like(g, dtype=torch.float32), grads)
+    flat = tree_util.leaves(grads)
+    split = split or [None] * len(flat)
     pairs = []
-    for g, r in zip(tree_util.leaves(grads), tree_util.leaves(residual)):
+    for g, r, s in zip(flat, tree_util.leaves(residual), split):
         x = g.to(torch.float32) + r
-        q, scale = _q(x)
+        q, scale = _q(x, None if s is None else tp_group)
         pairs.append(((q, scale), x - q.to(torch.float32) * scale))
     qtree = tree_util.unflatten(grads, (p[0] for p in pairs))
     new_res = tree_util.unflatten(grads, (p[1] for p in pairs))
@@ -57,8 +65,8 @@ def decompress_gradients(qtree):
     raise TypeError(f"not a compressed gradient tree: {type(qtree)}")
 
 
-def error_feedback_update(grads, residual):
+def error_feedback_update(grads, residual, split=None, tp_group=None):
     """Round-trip compress and decompress (what the wire would carry) and
     the new residual."""
-    qtree, new_res = compress_gradients(grads, residual)
+    qtree, new_res = compress_gradients(grads, residual, split, tp_group)
     return decompress_gradients(qtree), new_res

@@ -10,10 +10,16 @@
   host can regenerate a slow host's shard;
 * gradient compression: int8 with error feedback (``optim/compression.py``).
 
-The step runs eagerly (no ``torch.compile``).  The JAX package's ``ctx``
-(the mesh: data-parallel batches, sharded optimiser state) comes with
-multi-GPU training.  A model with ``use_ssd_kernel=True`` cannot train:
-the kernel has no backward, and its route raises.
+The step runs eagerly (no ``torch.compile``).  On a (data, model) mesh
+(``ctx``, a ``models.layers.ShardCtx``) each rank steps its rows and its
+parameter shard: the loss is the data group's mean, the gradients are
+averaged over the data group before the int8 compression (which the JAX
+package applies after its reduction too), and AdamW's moments follow the
+shards.  ``Trainer(ctx=)`` writes checkpoints in the unsharded layout
+(full leaves gathered over the model axis, written once) and shards what
+it loads by the current mesh, so a run saved at one mesh shape resumes at
+another.  A model with ``use_ssd_kernel=True`` cannot train: the kernel
+has no backward, and its route raises.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as tree_util
 from repro_torch.checkpoint import latest_step, load_checkpoint, save_checkpoint
@@ -31,7 +38,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.data import DataState
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.models.parallel import (average_over_dp, gather_tree,
+                                         leaf_splits, shard_tree)
 from repro_torch.optim import AdamW
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.optim.compression import error_feedback_update
 
 
@@ -47,7 +57,7 @@ class TrainConfig:
 
 
 def _value_and_grad(params, batch, cfg: ArchConfig, aux_coef: float = 0.01,
-                    remat: bool = True):
+                    remat: bool = True, ctx=None):
     """(loss, metrics), gradients in each parameter's dtype (as
     ``jax.value_and_grad`` of ``loss_fn``).  The parameters are read
     through detached views that require a gradient: nothing is copied,
@@ -56,16 +66,26 @@ def _value_and_grad(params, batch, cfg: ArchConfig, aux_coef: float = 0.01,
     leaves = [p.detach().requires_grad_() for p in tree_util.leaves(params)]
     with torch.enable_grad():
         lval, metrics = T.loss_fn(tree_util.unflatten(params, leaves), batch,
-                                  cfg, aux_coef, remat)
+                                  cfg, aux_coef, remat, ctx=ctx)
         grads = torch.autograd.grad(lval, leaves, allow_unused=True,
                                     materialize_grads=True)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return (lval.detach(), metrics), tree_util.unflatten(params, grads)
 
 
+def state_layout(cfg: ArchConfig, ctx, grad_compression: bool = False):
+    """The split of a train state (params, AdamWState, residual) over
+    ``ctx``'s model axis: the moments and a residual tree follow the
+    parameters."""
+    pl = T.param_layout(cfg, ctx.tp_size if ctx is not None else 1)
+    return (pl, AdamWState(step=None, m=pl, v=pl),
+            pl if grad_compression else None)
+
+
 def make_train_step(cfg: ArchConfig, opt: AdamW,
                     grad_compression: bool = False,
-                    num_microbatches: int = 1, aux_coef: float = 0.01):
+                    num_microbatches: int = 1, aux_coef: float = 0.01,
+                    ctx=None):
     """-> f(state, batch) -> (state, metrics); ``state`` is (params,
     AdamWState, residual), ``metrics`` holds ``loss``, ``nll``, ``aux``
     and ``grad_norm`` (float32 scalars on the device).  The loss is
@@ -75,13 +95,22 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
     along its leading axis, the m gradients are summed in float32 in
     order and divided by m, and ``aux`` is reported as 0 (as the JAX
     package does); live activations are those of one microbatch.
+
+    ``ctx``: ``state`` holds this rank's shards (``state_layout``) and
+    ``batch`` its rows (``SyntheticLMDataset.rank_batch_at``); microbatches
+    split the rows, the loss and the gradients are the data group's means,
+    and the grad norm is that of the whole gradient.
     """
+    layout = T.param_layout(cfg, ctx.tp_size) if ctx is not None else None
+    tp_group = ctx.tp_group if ctx is not None else None
 
     def step_fn(state, batch):
         params, opt_state, residual = state
+        split = (leaf_splits(params, layout) if layout is not None
+                 else None)
         if num_microbatches == 1:
             (lval, metrics), grads = _value_and_grad(params, batch, cfg,
-                                                     aux_coef)
+                                                     aux_coef, ctx=ctx)
         else:
             m = num_microbatches
             parts = {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])
@@ -93,7 +122,7 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
             for i in range(m):
                 (lv, _), g = _value_and_grad(
                     params, {k: v[i] for k, v in parts.items()}, cfg,
-                    aux_coef)
+                    aux_coef, ctx=ctx)
                 gsum = tree_util.tree_map(
                     lambda a, b: a + b.to(torch.float32), gsum, g)
                 lsum = lv if lsum is None else lsum + lv
@@ -103,9 +132,12 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
             lval = lsum * inv_m
             metrics = {"nll": lval, "aux": torch.zeros_like(lval)}
 
+        grads = average_over_dp(grads, ctx)
         if grad_compression:
-            grads, residual = error_feedback_update(grads, residual)
-        new_params, new_opt, gnorm = opt.update(grads, opt_state, params)
+            grads, residual = error_feedback_update(grads, residual, split,
+                                                    tp_group)
+        new_params, new_opt, gnorm = opt.update(grads, opt_state, params,
+                                                split, tp_group)
         metrics = dict(metrics, loss=lval, grad_norm=gnorm)
         return (new_params, new_opt, residual), metrics
 
@@ -116,14 +148,22 @@ class Trainer:
     def __init__(self, cfg: ArchConfig, dataset, opt: AdamW,
                  tc: TrainConfig,
                  failure_hook: Optional[Callable[[int], None]] = None,
-                 device=None):
+                 device=None, ctx=None):
         self.cfg, self.dataset, self.opt, self.tc = cfg, dataset, opt, tc
         self.failure_hook = failure_hook
+        self.ctx = ctx
         self.device = resolve_device(device)
         self.step_fn = make_train_step(cfg, opt, tc.grad_compression,
-                                       aux_coef=tc.aux_coef)
+                                       aux_coef=tc.aux_coef, ctx=ctx)
+        self.layout = state_layout(cfg, ctx, tc.grad_compression)
 
-    def _fresh_state(self, generator: torch.Generator):
+    def _lead(self) -> bool:
+        """Prints and writes: the only rank without a mesh, rank 0 on
+        one."""
+        return self.ctx is None or dist.get_rank() == 0
+
+    def _fresh_full_state(self, generator: torch.Generator):
+        """The unsharded fresh state (every rank draws the same)."""
         params = T.init_params(generator, self.cfg)
         opt_state = self.opt.init(params)
         residual = (tree_util.tree_map(
@@ -131,6 +171,23 @@ class Trainer:
             if self.tc.grad_compression
             else torch.zeros((), dtype=torch.float32, device=self.device))
         return params, opt_state, residual
+
+    def _fresh_state(self, generator: torch.Generator):
+        """This rank's shard of a fresh state."""
+        return shard_tree(self._fresh_full_state(generator), self.layout,
+                          self.ctx)
+
+    def save(self, step: int, state, data: DataState) -> None:
+        """A checkpoint of ``state`` in the unsharded layout: under a mesh
+        its leaves are gathered over the model axis and rank 0 writes."""
+        full = gather_tree(state, self.layout, self.ctx)
+        if self._lead():
+            save_checkpoint(
+                self.tc.checkpoint_dir, step, full,
+                meta={"data_seed": data.seed, "data_step": data.step,
+                      "arch": self.cfg.name})
+        if self.ctx is not None:
+            dist.barrier()
 
     def run(self, generator: Optional[torch.Generator] = None,
             resume: bool = True):
@@ -140,7 +197,7 @@ class Trainer:
         of (step, loss))."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        state = self._fresh_state(generator)
+        state = self._fresh_full_state(generator)
         data = DataState(seed=self.dataset.seed, step=0)
         start = 0
         if resume:
@@ -151,25 +208,25 @@ class Trainer:
                 data = DataState(seed=meta["data_seed"],
                                  step=meta["data_step"])
                 start = last
+        state = shard_tree(state, self.layout, self.ctx)
 
         history = []
         for step in range(start, self.tc.steps):
             if self.failure_hook is not None:
                 self.failure_hook(step)      # may raise (simulated node loss)
-            batch = self.dataset.batch_at(data.step, device=self.device)
+            batch = self.dataset.rank_batch_at(data.step, self.ctx,
+                                               device=self.device)
             t0 = time.perf_counter()
             state, metrics = self.step_fn(state, batch)
             data = data.advance()
             if (step + 1) % self.tc.log_every == 0 or step == start:
                 loss = float(metrics["loss"])
                 history.append((step + 1, loss))
-                print(f"step {step + 1:5d} loss {loss:.4f} "
-                      f"gnorm {float(metrics['grad_norm']):.3f} "
-                      f"dt {time.perf_counter() - t0:.3f}s")
+                if self._lead():
+                    print(f"step {step + 1:5d} loss {loss:.4f} "
+                          f"gnorm {float(metrics['grad_norm']):.3f} "
+                          f"dt {time.perf_counter() - t0:.3f}s")
             if (step + 1) % self.tc.checkpoint_every == 0 \
                     or step + 1 == self.tc.steps:
-                save_checkpoint(
-                    self.tc.checkpoint_dir, step + 1, state,
-                    meta={"data_seed": data.seed, "data_step": data.step,
-                          "arch": self.cfg.name})
+                self.save(step + 1, state, data)
         return state, history

@@ -84,7 +84,7 @@ def test_port_imports_neither_jax_nor_repro():
                 "diffusion.denoiser", "diffusion.dit", "configs.dit_s",
                 "core.policies", "launch.cli", "launch.scheduler",
                 "launch.serve_diffusion", "launch.router", "launch.mesh",
-                "kernels.autotune", "tree", "optim.adamw",
+                "models.parallel", "kernels.autotune", "tree", "optim.adamw",
                 "optim.schedules", "optim.compression", "data.pipeline",
                 "checkpoint.store", "launch.model_flops", "train.trainer",
                 "launch.train", *(f"examples.{name}" for name in EXAMPLES)):
@@ -162,9 +162,10 @@ def test_train_runs_on_the_card_unless_asked_for_the_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
     from repro_torch.launch import train
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        train.main(["--arch", "mamba2-130m", "--smoke", "--steps", "1",
-                    "--ckpt-dir", str(tmp_path)])
+    for extra in ([], ["--sharded"], ["--sharded", "--mesh", "2"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--arch", "mamba2-130m", "--smoke", "--steps", "1",
+                        "--ckpt-dir", str(tmp_path), *extra])
 
 
 def test_serve_diffusion_runs_on_the_card_unless_asked_for_the_cpu():
