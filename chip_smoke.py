@@ -177,7 +177,28 @@ no result line):
                  against ``ctx=None`` (one call a layer each); (i)
                  ``launch.train --sharded`` takes 2 steps at smoke
                  geometry through its CLI.
-19. examples   — the five example twins (``repro_torch.examples``), each
+19. dryrun     — the dry-run (``launch.dryrun``) on torch's fake process
+                 group, fake CUDA tensors, no card memory: (a)
+                 ``run_cell`` of mamba2-130m x train_4k (TP-folded onto
+                 256 x 1) and llama3-8b x decode_32k on the 16 x 16 mesh:
+                 status ok, flops, bytes and collective bytes above 0,
+                 the dense decode's 1- and 2-layer extrapolation equal to
+                 its full trace, ``memory_allocated`` the same before and
+                 after; (b) the memory model: hymba-1.5b's whole step (4 x
+                 2048) and qwen2-moe's 2-layer step (4 x 1024), traced on
+                 a fake (1, 1) group, predict the peak that one real step
+                 of the same step function reads from
+                 ``max_memory_allocated`` within ``DRYRUN_MEM_RTOL``, and
+                 issue the all-reduces the real step counts; (c) the
+                 traces of the train phase's (g) steps give (g)'s model-
+                 and data-axis all-reduce counts exactly; (d) llama3-8b x
+                 decode_32k through the CLI (``dryrun.main``), its record
+                 read back from ``--out``.  The (a) cell of llama3-8b is
+                 (d)'s record.  The traces need the host alone: they run
+                 in a worker process started after the kernels phase
+                 (``start_dryrun_traces``), beside the card's phases, and
+                 this phase reads them and runs (b)'s real steps.
+20. examples   — the five example twins (``repro_torch.examples``), each
                  ``main()`` in process on the card: ``quickstart`` (the
                  DBSC kernel's integers equal its oracle; one bit-slice
                  and one cross-attention launch), ``tips_visualization``,
@@ -1602,7 +1623,9 @@ def _sharded_steps(torch, name, cfg, step, state, batch, ctx, opt):
     """(g): one step of ``make_train_step(ctx=)`` at degree 1 against
     ``step`` (unsharded) from the same state and batch, with and without
     ``remat_save_collectives``: loss, grad norm, parameters and moments
-    bit for bit.  Prints the collectives a step and their host us."""
+    bit for bit.  Prints the collectives a step and their host us; returns
+    the model- and data-axis all-reduces a step by
+    ``remat_save_collectives``."""
     from repro_torch import tree as tree_util
     from repro_torch.models import parallel as PAR
     from repro_torch.models import transformer as T
@@ -1611,6 +1634,7 @@ def _sharded_steps(torch, name, cfg, step, state, batch, ctx, opt):
     require(T.param_layout(cfg, ctx.tp_size)["layers"] is None,
             f"{name}: (g) a leaf splits at degree 1")
     ref, mref = step(state, batch)
+    seen = {}
     for save in (False, True):
         c = cfg.scaled(remat_save_collectives=save)
         sharded = make_train_step(c, opt, ctx=ctx)
@@ -1633,8 +1657,10 @@ def _sharded_steps(torch, name, cfg, step, state, batch, ctx, opt):
         require(same, f"{name}: (g) the sharded step is not bit-equal "
                       f"(remat_save_collectives {save})")
         require(counts["dp_all_reduce"] > 0, f"{name}: (g) no collective")
+        seen[save] = (counts["tp_all_reduce"], counts["dp_all_reduce"])
         del got, mgot
     del ref, mref
+    return seen
 
 
 def mesh_shape_of(ctx) -> dict:
@@ -1719,7 +1745,7 @@ def train_phase(torch):
         ctx = ShardCtx(mesh=mesh_mod.make_elastic_mesh(), dp_axes=("data",))
         require(mesh_shape_of(ctx) == {"data": 1, "model": 1},
                 f"(g) elastic mesh {mesh_shape_of(ctx)} on one card")
-        _train_body(torch, ctx)
+        return _train_body(torch, ctx)
 
 
 def _train_body(torch, ctx):
@@ -1832,8 +1858,9 @@ def _train_body(torch, ctx):
     state = _train_readings(torch, name, cfg, step, state, ds, times,
                             TRAIN_MOE_SEQ)
     t_g = time.perf_counter()
-    _sharded_steps(torch, name, cfg, step, state,
-                   ds.batch_at(TRAIN_STEPS + 1, device="cuda"), ctx, opt)
+    g_counts = {name: _sharded_steps(
+        torch, name, cfg, step, state,
+        ds.batch_at(TRAIN_STEPS + 1, device="cuda"), ctx, opt)}
     print(f"  {name}: (g) in {time.perf_counter() - t_g:.2f} s")
     del state, batch, m
     free()
@@ -1859,9 +1886,10 @@ def _train_body(torch, ctx):
     cfg = cfg.scaled(num_layers=TRAIN_FT_LAYERS)
     params = _resume_and_remat(torch, name, cfg, ds, opt, exact=False)
     t_g = time.perf_counter()
-    _sharded_steps(torch, name, cfg, make_train_step(cfg, opt),
-                   (params, opt.init(params), zero()),
-                   ds.batch_at(1, device="cuda"), ctx, opt)
+    g_counts[name] = _sharded_steps(torch, name, cfg,
+                                    make_train_step(cfg, opt),
+                                    (params, opt.init(params), zero()),
+                                    ds.batch_at(1, device="cuda"), ctx, opt)
     print(f"  {name}: (g) in {time.perf_counter() - t_g:.2f} s")
     batch = ds.batch_at(0, device="cuda")
     kcfg = cfg.scaled(use_ssd_kernel=True)
@@ -1890,6 +1918,238 @@ def _train_body(torch, ctx):
     _sharded_cli(torch)
     free()
     print(f"  (h), (i) in {time.perf_counter() - t_h:.2f} s")
+    return g_counts
+
+
+# ---------------------------------------------------------------------------
+# dryrun: the dry-run on fake ranks, and its memory model against the card
+# ---------------------------------------------------------------------------
+# DRYRUN_MEM_RTOL: (b)'s bound, |predicted - measured| / measured peak of a
+# train step.  The prediction counts every storage the step's dispatched
+# ops create, at its exact size; the card's allocator rounds each block up
+# (to 512 B, a large one up to the free block it splits) and cuBLAS keeps
+# its workspaces through the same allocator.  The first readings (PERF.md,
+# PR 29) were -0.20 % (hymba-1.5b, 41.03 GB) and -0.01 % (qwen2-moe, 46.89
+# GB); the bound is ten times the larger.
+DRYRUN_MEM_RTOL = 0.02
+DRYRUN_CELLS = (("mamba2-130m", "train_4k"), ("llama3-8b", "decode_32k"))
+
+
+def _dryrun_cfgs() -> dict:
+    """(c)'s and (b)'s train steps: name -> (arch, layers, seq, save);
+    (c) the train phase's (g) steps, (b) its hymba-1.5b whole step and
+    qwen2-moe 2-layer step."""
+    cells = {}
+    for arch, layers, seq in (("qwen2-moe-a2.7b", TRAIN_MOE_LAYERS,
+                               TRAIN_MOE_SEQ),
+                              ("hymba-1.5b", TRAIN_FT_LAYERS, TRAIN_FT_SEQ)):
+        for save in (False, True):
+            cells["c", arch, save] = (arch, layers, seq, save)
+    cells["b", "hymba-1.5b"] = ("hymba-1.5b", None, TRAIN_SEQ, False)
+    cells["b", "qwen2-moe-a2.7b"] = ("qwen2-moe-a2.7b", TRAIN_MOE_LAYERS,
+                                     TRAIN_MOE_SEQ, False)
+    return cells
+
+
+def _dryrun_cfg(arch, layers, save):
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch).scaled(remat_save_collectives=save)
+    return cfg if layers is None else cfg.scaled(num_layers=layers)
+
+
+def _train_shape(arch: str, seq: int):
+    from repro_torch.configs.base import ShapeConfig
+    return ShapeConfig(f"{arch}_{TRAIN_BATCH}x{seq}", seq, TRAIN_BATCH,
+                       "train")
+
+
+def dryrun_traces() -> dict:
+    """Every trace of the dryrun phase, on fakes: (a) ``run_cell`` of
+    ``DRYRUN_CELLS[0]``, (d) ``DRYRUN_CELLS[1]`` through the CLI (its
+    record read back from ``--out``), and the traces of ``_dryrun_cfgs``
+    on a fake (1, 1) group, the model axis kept as (g)'s mesh keeps it.
+    It runs on the host alone (fake CUDA tensors, no card memory), so the
+    smoke runs it in a worker process beside the card's phases
+    (``start_dryrun_traces``); ``memory_allocated`` is read in that
+    process before and after."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as mesh_mod
+    torch.set_num_threads(1)
+    out = {"mem_before": torch.cuda.memory_allocated(), "cells": {}}
+    t0 = time.perf_counter()
+    out["cells"][DRYRUN_CELLS[0]] = D.run_cell(*DRYRUN_CELLS[0], False,
+                                               verbose=False)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        t1 = time.perf_counter()
+        argv = ["--arch", DRYRUN_CELLS[1][0], "--shape",
+                DRYRUN_CELLS[1][1], "--out", tmp]
+        with contextlib.redirect_stdout(None):
+            (cli,) = D.main(argv)
+        with open(os.path.join(tmp, D._record_name(cli))) as f:
+            out["cells"][DRYRUN_CELLS[1]] = json.load(f)
+        out["cli"] = (" ".join(argv[:4]), D._record_name(cli),
+                      time.perf_counter() - t1)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["ad_s"] = time.perf_counter() - t0
+    out["traces"] = {}
+    for key, (arch, layers, seq, save) in _dryrun_cfgs().items():
+        with mesh_mod.fake_process_group(1):
+            out["traces"][key] = D._trace_cell(
+                _dryrun_cfg(arch, layers, save), _train_shape(arch, seq),
+                mesh_mod.make_smoke_mesh(), device="cuda", tp_fold=False)
+    out["mem_after"] = torch.cuda.memory_allocated()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def start_dryrun_traces():
+    """``dryrun_traces`` in a spawned worker process; -> (executor,
+    future).  The caller shuts the executor down."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(dryrun_traces)
+
+
+def _hold_cell(rec: dict, label: str) -> None:
+    coll = rec.get("collective_bytes", {})
+    require(rec["status"] == "ok",
+            f"(a) {label}: {rec.get('error')}\n{rec.get('traceback')}")
+    require(rec["flops"] > 0 and rec["bytes_accessed"] > 0
+            and coll["total"] > 0, f"(a) {label}: a zero count {rec}")
+    mem = rec["memory_analysis"]
+    print(f"  {label}: trace {rec['trace_s']} s; a rank's flops "
+          f"{rec['flops']:.4e} (global {rec['flops_global']:.4e}), bytes "
+          f"{rec['bytes_accessed']:.4e}, collective bytes {coll['total']:.4e} "
+          f"(weighted {coll['weighted']:.4e}, counts {coll['counts']}); "
+          f"arguments {mem['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
+          f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, alias "
+          f"{mem['alias_size_in_bytes'] / 1e9:.3f} GB; extrapolated flops "
+          f"{rec['extrapolated']['flops']:.4e}")
+
+
+def _gb(n) -> str:
+    return f"{n / 1e9:.3f} GB"
+
+
+def _memory_model(torch, arch: str, rec: dict):
+    """(b) for one step: the fake (1, 1) trace ``rec``'s peak against one
+    real step of ``dryrun.step_callable`` in a one-rank NCCL group, and
+    the all-reduces each counts."""
+    import gc
+
+    from repro_torch import tree as tree_util
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import parallel as PAR
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW
+
+    _, layers, seq, save = _dryrun_cfgs()["b", arch]
+    cfg = _dryrun_cfg(arch, layers, save)
+    mem = rec["memory_analysis"]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    with mesh_mod.process_group(device="cuda"):
+        step = D.step_callable(cfg, _train_shape(arch, seq),
+                               mesh_mod.make_smoke_mesh(), tp_fold=False)
+        params = T.init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg)
+        opt = AdamW()
+        state = (params, opt.init(params),
+                 torch.zeros((), device="cuda"))
+        del params
+        ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=seq,
+                                global_batch=TRAIN_BATCH, seed=0,
+                                embedding_input=cfg.embedding_input,
+                                d_model=cfg.d_model)
+        batch = ds.batch_at(0, device="cuda")
+        args = sum(a.numel() * a.element_size()
+                   for a in tree_util.leaves((state, batch)))
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        other = torch.cuda.memory_allocated() - args
+        PAR.reset_collective_counts()
+        dt, (new, m) = _synced_s(torch, lambda: step(state, batch))
+        counts = PAR.collective_counts()
+        measured = torch.cuda.max_memory_allocated() - other
+        loss = float(m["loss"])
+        del state, batch, new, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = mem["output_size_in_bytes"]
+    gap = (predicted - measured) / measured
+    print(f"  {arch} ({cfg.num_layers} layers, {TRAIN_BATCH} x {seq}): "
+          f"predicted peak {_gb(predicted)} = arguments "
+          f"{_gb(mem['argument_size_in_bytes'])} (the train state and the "
+          f"batch; {_gb(args)} on the card) + temp "
+          f"{_gb(mem['temp_size_in_bytes'])} (the new state "
+          f"{_gb(out)}, gradients and activations "
+          f"{_gb(mem['temp_size_in_bytes'] - out)}); measured "
+          f"{_gb(measured)} (max_memory_allocated less "
+          f"{_gb(other)} held outside the step), {gap:+.4f} (limit "
+          f"{DRYRUN_MEM_RTOL}); trace {rec['trace_s']} s, real step "
+          f"{dt:.3f} s, loss {loss!r}")
+    require(args == mem["argument_size_in_bytes"],
+            f"(b) {arch}: argument bytes {args} on the card, "
+            f"{mem['argument_size_in_bytes']} traced")
+    require(math.isfinite(loss), f"(b) {arch}: loss {loss}")
+    require(abs(gap) <= DRYRUN_MEM_RTOL, f"(b) {arch}: peak {gap:+.4f}")
+    traced = rec["collective_axes"]
+    for k in ("tp_all_reduce", "dp_all_reduce"):
+        require(counts[k] == traced[k],
+                f"(b) {arch}: {k} {counts[k]} run, {traced[k]} traced")
+
+
+@phase("dryrun")
+def dryrun_phase(torch, g_counts, traced):
+    """The dry-run on the card host (docstring, item 19).  ``g_counts``:
+    the train phase's (g) all-reduces by model and save flag; ``traced``:
+    ``dryrun_traces()``'s result (from its worker process)."""
+    print(f"  the traces took {traced['s']:.2f} s in their worker process "
+          f"((a), (d) {traced['ad_s']:.2f} s)")
+    cmd, name, cli_s = traced["cli"]
+    print(f"  (d) dryrun.main({cmd} --out <tmp>) in {cli_s:.2f} s, record "
+          f"{name} read back")
+    recs = traced["cells"]
+    for (arch, shape), rec in recs.items():
+        _hold_cell(rec, f"{arch} x {shape} x {rec['mesh']}")
+    fold = recs[DRYRUN_CELLS[0]]
+    require(fold["collective_axes"]["tp_all_reduce"] == 0,
+            f"(a) mamba2-130m not TP-folded: {fold['collective_axes']}")
+    dec = recs[DRYRUN_CELLS[1]]
+    require(dec["extrapolated"]["flops"] == dec["flops"],
+            f"(a) llama3-8b decode: extrapolated {dec['extrapolated']} "
+            f"against {dec['flops']}")
+    print(f"  (a) memory_allocated {traced['mem_before']} before, "
+          f"{traced['mem_after']} after")
+    require(traced["mem_after"] == traced["mem_before"],
+            "(a) the dry-run took card memory")
+    for key, rec in traced["traces"].items():
+        if key[0] != "c":
+            continue
+        _, arch, save = key
+        ax = rec["collective_axes"]
+        got = (ax["tp_all_reduce"], ax["dp_all_reduce"])
+        print(f"  {arch} (remat_save_collectives {save}): (c) traced "
+              f"{got[0]} model-axis + {got[1]} data-axis all-reduces a "
+              f"step in {rec['trace_s']} s, (g) ran {g_counts[arch][save]}")
+        require(got == g_counts[arch][save],
+                f"(c) {arch} save {save}: {got} against "
+                f"{g_counts[arch][save]}")
+    t0 = time.perf_counter()
+    for arch in ("hymba-1.5b", "qwen2-moe-a2.7b"):
+        _memory_model(torch, arch, traced["traces"]["b", arch])
+    print(f"  (b)'s real steps in {time.perf_counter() - t0:.2f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -5106,10 +5366,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
+    pool = None
     try:
         smi = environment(torch)
         build_kernels()
         rows = kernels_phase(torch)
+        # the dry-run's traces need the host alone: beside the card's phases
+        pool, traces = start_dryrun_traces()
         eng, counts = slice_phase(torch)
         mesh_phase(torch, eng)
         slots_phase(torch, eng)
@@ -5124,13 +5387,17 @@ def main() -> int:
         parity_phase(torch, eng)
         serve_counts = serve_phase(torch)
         lm_phase(torch)
-        train_phase(torch)
+        g_counts = train_phase(torch)
+        dryrun_phase(torch, g_counts, traces.result())
         examples_phase(torch)
     except Exception as exc:                      # report, then fail
         import traceback
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
     rows.update(bitmap_rows)
     # each kernel's launches on its own path: the slice for the three of
     # the dense path, the temporal run, the bitmap entry point and the

@@ -7,7 +7,7 @@ imported by name, not here: they pull in the diffusion stack.
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
-    SHAPES, ArchConfig, ShapeConfig)
+    SHAPES, ArchConfig, ShapeConfig, shape_applicable)
 
 ARCH_NAMES = [
     "mamba2-130m",

@@ -119,3 +119,10 @@ SHAPES = {
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
 
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> bool:
+    """long_500k needs sub-quadratic attention (DESIGN.md §6)."""
+    if shape.name == "long_500k":
+        return cfg.subquadratic
+    return True

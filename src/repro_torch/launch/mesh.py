@@ -8,6 +8,8 @@ The constructors need that group: ``process_group`` starts one in this
 process, ``spawn`` starts N processes, one a rank.  Both rendezvous
 through a ``FileStore`` in a temporary directory (no network) and take a
 timeout, so a stuck rank fails in seconds instead of hanging.
+``fake_process_group`` makes this process rank 0 of N ranks that do not
+exist (the dry-run's production meshes, ``make_production_mesh``).
 
 Under GSPMD a JAX program on a mesh is ONE program, and every reduction
 over the batch is global.  A torch rank runs its own rows, so each such
@@ -76,6 +78,28 @@ def process_group(world_size: int = 1, rank: int = 0, device="cuda",
             dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def fake_process_group(world_size: int):
+    """The default process group for the length of the block on torch's
+    ``"fake"`` backend: this process is rank 0 of ``world_size`` ranks
+    that do not exist, and every collective returns at once, moving
+    nothing (the counterpart of the JAX package's fake host devices,
+    ``dryrun.force_fake_devices``).  With ``FakeTensorMode`` it traces
+    what one rank of a large mesh would run and issue, on no device
+    memory.  Destroyed on exit; never entered at import.
+
+    ``FakeStore`` and the backend come from
+    ``torch.testing._internal.distributed.fake_pg``, a private module of
+    torch: imported here, and only here."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def _rank_main(rank, world_size, tmp, device, timeout, fn, args):
     """One spawned rank: join the group, run ``fn``, leave its return
     value in ``tmp`` for the parent."""
@@ -88,7 +112,7 @@ def _rank_main(rank, world_size, tmp, device, timeout, fn, args):
         pickle.dump(out, f)
 
 
-def spawn(fn, nprocs: int, args: tuple = (), device="cpu",
+def spawn(fn, nprocs: int, args: tuple = (), device="cuda",
           timeout: float = DEFAULT_TIMEOUT_S) -> list:
     """Run ``fn(*args)`` on ``nprocs`` new processes, one rank each of a
     new default group (gloo on the CPU with one intra-op thread a rank,
@@ -146,14 +170,14 @@ def _world() -> int:
 
 def group_device() -> str:
     """The device type of the default group's ranks: ``cuda`` (NCCL) or
-    ``cpu`` (gloo)."""
+    ``cpu`` (gloo, and the fake backend, which moves nothing)."""
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def _mesh(shape):
+def _mesh(shape, axes=AXES):
     from torch.distributed.device_mesh import DeviceMesh
     ranks = torch.arange(math.prod(shape)).reshape(shape)
-    return DeviceMesh(group_device(), ranks, mesh_dim_names=AXES)
+    return DeviceMesh(group_device(), ranks, mesh_dim_names=tuple(axes))
 
 
 def make_data_mesh(dp: int):
@@ -177,6 +201,20 @@ def make_elastic_mesh(tp_size: int = 16):
     hosts a relaunch gets a smaller valid mesh, the data axis absorbing
     the loss."""
     return _mesh(elastic_shape(_world(), tp_size))
+
+
+def make_production_mesh(*, multi_pod: bool = False, tp_size: int = 16):
+    """(256/tp, tp) over axes ("data", "model"), or (2, 256/tp, tp) over
+    ("pod", "data", "model") with ``multi_pod``: 256 or 512 ranks, the
+    JAX package's single- and multi-pod meshes.  Needs that many ranks in
+    the default group (``fake_process_group`` for a dry-run)."""
+    per_pod = 256
+    if per_pod % tp_size:
+        raise ValueError(f"tp {tp_size} does not divide {per_pod}")
+    dp = per_pod // tp_size
+    shape = (2, dp, tp_size) if multi_pod else (dp, tp_size)
+    _need(math.prod(shape), _world())
+    return _mesh(shape, (("pod",) if multi_pod else ()) + AXES)
 
 
 def make_smoke_mesh():

@@ -45,7 +45,9 @@ class ShardCtx:
     keeps writing the literal "model" in its specs and ``spec`` rewrites it
     to replicated, while the physical model axis serves as extra data
     parallelism through ``dp_axes``.  Built on every rank of the mesh at
-    once (a data group over several axes is a new process group)."""
+    once (a data group over several axes is a new process group, or WORLD
+    where it spans the default group).  ``dp_axes`` over a multi-pod
+    mesh's ("pod", "data") groups the ranks of one model index."""
     mesh: object                       # torch DeviceMesh, axes (data, model)
     dp_axes: tuple                     # ("data",) or ("data", "model")
     tp_axis: str | None = "model"
@@ -64,13 +66,7 @@ class ShardCtx:
         if len(self.dp_axes) == 1:
             dp_group = self.mesh.get_group(self.dp_axes[0])
         else:
-            if set(self.dp_axes) != set(names):
-                raise ValueError(f"dp_axes {self.dp_axes} over more than "
-                                 f"one axis must cover the mesh {names}")
-            ranks = sorted(int(r) for r in self.mesh.mesh.flatten())
-            dp_group = (dist.group.WORLD
-                        if ranks == list(range(dist.get_world_size()))
-                        else dist.new_group(ranks))
+            dp_group = _axes_group(self.mesh, self.dp_axes)
         tp = self.tp_axis
         for k, v in (("dp_rank", dp_rank), ("dp_size", dp_size),
                      ("dp_group", dp_group),
@@ -98,6 +94,31 @@ class ShardCtx:
                 if a is not None and a not in names:
                     raise ValueError(f"cs: no mesh axis {a!r} in {names}")
         return x
+
+
+def _axes_group(mesh, axes: tuple):
+    """The process group of the ranks that share this rank's coordinates
+    on every mesh axis not in ``axes`` (``axes`` in mesh order, so a
+    rank's index in the group is its index over ``axes``, row-major).
+    Every rank builds the group of each such coordinate, in the same
+    order (``new_group`` is collective); one that spans the default group
+    is WORLD."""
+    names = tuple(mesh.mesh_dim_names)
+    if [a for a in names if a in axes] != list(axes):
+        raise ValueError(f"dp_axes {axes} are not axes of {names} in "
+                         "mesh order")
+    rest = [names.index(a) for a in names if a not in axes]
+    grid = mesh.mesh.permute(rest + [names.index(a) for a in axes])
+    rows = grid.reshape(-1, math.prod(mesh.size(names.index(a))
+                                      for a in axes)).tolist()
+    if len(rows) == 1 and rows[0] == list(range(dist.get_world_size())):
+        return dist.group.WORLD
+    me, mine = dist.get_rank(), None
+    for row in rows:
+        group = dist.new_group(row)
+        if me in row:
+            mine = group
+    return mine
 
 
 def maybe_cs(ctx: Optional[ShardCtx], x, *spec):
@@ -201,12 +222,13 @@ def apply_rope(x, positions, rotary_pct: float, theta: float):
 # ----------------------------------------------------------------------------
 # Attention (GQA: causal / sliding-window / decode with a cache) + PSSA hook
 # ----------------------------------------------------------------------------
-def init_attn_params(generator: torch.Generator, cfg: ArchConfig, dtype):
-    """Random projections on the generator's device, with the JAX
-    package's shapes and scale."""
+def init_attn_params(generator: torch.Generator, cfg: ArchConfig, dtype,
+                     device=None):
+    """Random projections on ``device`` (the generator's by default), with
+    the JAX package's shapes and scale."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = d ** -0.5
-    dev = generator.device
+    dev = generator.device if device is None else device
 
     def normal(shape):
         return (torch.randn(shape, generator=generator, device=dev)
@@ -478,8 +500,8 @@ def decode_attention_slot(x, p, cfg: ArchConfig, cache_k, cache_v,
 # FFN (SwiGLU / GELU) + TIPS mixed-precision hook
 # ----------------------------------------------------------------------------
 def init_ffn_params(generator: torch.Generator, d_model: int, d_ff: int,
-                    activation: str, dtype):
-    dev = generator.device
+                    activation: str, dtype, device=None):
+    dev = generator.device if device is None else device
 
     def normal(shape, scale):
         return (torch.randn(shape, generator=generator, device=dev)

@@ -32,12 +32,13 @@ from repro_torch.models.parallel import (P, Split, copy_to_tp, mean_over_dp,
                                          reduce_from_tp, split_ctx)
 
 
-def init_moe_params(generator: torch.Generator, cfg: ArchConfig, dtype):
-    """Random parameters on the generator's device, with the JAX package's
-    shapes and scales (the router in float32)."""
+def init_moe_params(generator: torch.Generator, cfg: ArchConfig, dtype,
+                    device=None):
+    """Random parameters on ``device`` (the generator's by default), with
+    the JAX package's shapes and scales (the router in float32)."""
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
     s = d ** -0.5
-    dev = generator.device
+    dev = generator.device if device is None else device
 
     def normal(shape, scale, dt=dtype):
         return (torch.randn(shape, generator=generator, device=dev)

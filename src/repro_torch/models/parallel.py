@@ -20,8 +20,11 @@ is an all-reduce both ways: a sum over a split dimension whose result
 feeds the split computation again (the gated norm of a Mamba-2 mixer).
 
 Every collective here is counted (``collective_counts``) with its host
-time.  Over a one-rank group each is an identity.  Under
-``remat_save_collectives`` the forward all-reduces of a checkpointed layer
+time, and its payload bytes under the JAX package's kinds
+(``collective_bytes``: the counterpart of its HLO parser,
+``collective_bytes_from_hlo``; the port has no HLO, so this is the record
+of what the rank's program issued).  Over a one-rank group each is an
+identity.  Under ``remat_save_collectives`` the forward all-reduces of a checkpointed layer
 are recorded, and its recomputation in the backward replays them instead
 of running them again (``collective_tape``, the ``context_fn`` of
 ``torch.utils.checkpoint``; the JAX package names them ``tp_psum_out`` and
@@ -81,28 +84,66 @@ def mesh_shape(mesh) -> dict:
 # ---------------------------------------------------------------------------
 # Collective counters
 # ---------------------------------------------------------------------------
+# the JAX package's collective kinds (``dryrun.collective_bytes_from_hlo``)
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+_KIND = {"tp_all_reduce": "all-reduce", "tp_all_gather": "all-gather",
+         "dp_all_reduce": "all-reduce", "dp_all_gather": "all-gather"}
 _COUNTS = {"tp_all_reduce": 0, "tp_all_gather": 0, "dp_all_reduce": 0,
-           "host_s": 0.0}
+           "dp_all_gather": 0, "host_s": 0.0}
+_BYTES = dict.fromkeys(COLLECTIVES, 0)
+_ISSUED = dict.fromkeys(COLLECTIVES, 0)
 
 
 def reset_collective_counts() -> None:
     for k in _COUNTS:
         _COUNTS[k] = 0.0 if k == "host_s" else 0
+    for k in COLLECTIVES:
+        _BYTES[k] = _ISSUED[k] = 0
 
 
 def collective_counts() -> dict:
     """Collectives issued since the last reset: model-axis all-reduces and
-    all-gathers, data-axis all-reduces, and their summed host seconds (the
-    call, not the device time)."""
+    all-gathers, data-axis all-reduces and all-gathers (ZeRO-1's
+    parameters), and their summed host seconds (the call, not the device
+    time)."""
     return dict(_COUNTS)
 
 
-def _timed(kind: str, fn):
+def collective_summary(bytes_by_kind: dict, counts: dict) -> dict:
+    """The JAX package's collective record from bytes and counts by kind:
+    each kind's bytes, ``weighted`` (a ring all-reduce moves about twice
+    its payload) and ``total``, and ``counts``."""
+    out = {k: float(bytes_by_kind.get(k, 0)) for k in COLLECTIVES}
+    out["weighted"] = (2.0 * out["all-reduce"] + out["all-gather"]
+                       + out["reduce-scatter"] + out["all-to-all"]
+                       + out["collective-permute"])
+    out["total"] = sum(out[k] for k in COLLECTIVES)
+    out["counts"] = {k: int(counts.get(k, 0)) for k in COLLECTIVES}
+    return out
+
+
+def collective_bytes() -> dict:
+    """What this rank issued since the last reset, as the JAX package
+    records a compiled program's collectives: the payload a rank holds
+    after each (an all-reduce's tensor, an all-gather's gathered block).
+    The port has no HLO to parse: this is the record of the collectives
+    its program actually called."""
+    return collective_summary(_BYTES, _ISSUED)
+
+
+def _timed(kind: str, fn, nbytes: int):
     t0 = time.perf_counter()
     out = fn()
     _COUNTS["host_s"] += time.perf_counter() - t0
     _COUNTS[kind] += 1
+    _BYTES[_KIND[kind]] += nbytes
+    _ISSUED[_KIND[kind]] += 1
     return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def all_reduced(x: torch.Tensor, group, kind: str, op=dist.ReduceOp.SUM):
@@ -112,7 +153,17 @@ def all_reduced(x: torch.Tensor, group, kind: str, op=dist.ReduceOp.SUM):
     def run():
         dist.all_reduce(out, op=op, group=group)
         return out
-    return _timed(kind, run)
+    return _timed(kind, run, _nbytes(out))
+
+
+def gathered_parts(x: torch.Tensor, group, kind: str) -> list:
+    """Every rank of ``group``'s ``x`` (all of one shape), in group-rank
+    order."""
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+             for _ in range(dist.get_world_size(group))]
+    _timed(kind, lambda: dist.all_gather(parts, x.contiguous(), group=group),
+           len(parts) * _nbytes(x))
+    return parts
 
 
 # ---------------------------------------------------------------------------
@@ -185,13 +236,8 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group, dim):
-        n = dist.get_world_size(group)
         ctx.dim, ctx.rank, ctx.size = dim, dist.get_rank(group), x.shape[dim]
-        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
-                 for _ in range(n)]
-        _timed("tp_all_gather", lambda: dist.all_gather(
-            parts, x.contiguous(), group=group))
-        return torch.cat(parts, dim=dim)
+        return torch.cat(gathered_parts(x, group, "tp_all_gather"), dim=dim)
 
     @staticmethod
     def backward(ctx, grad):
@@ -307,9 +353,7 @@ class Split:
                 local.narrow(self.dim, c, local.shape[self.dim] - c))
 
     def gather(self, local: torch.Tensor, ctx) -> torch.Tensor:
-        parts = [torch.empty_like(local) for _ in range(ctx.tp_size)]
-        _timed("tp_all_gather", lambda: dist.all_gather(
-            parts, local.contiguous(), group=ctx.tp_group))
+        parts = gathered_parts(local, ctx.tp_group, "tp_all_gather")
         if self.head is None:
             return torch.cat(parts, dim=self.dim)
         c = self.head // ctx.tp_size

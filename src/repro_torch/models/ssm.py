@@ -30,6 +30,8 @@ The kernel route hands ``ssd_scan_fused`` this rank's heads.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -57,6 +59,58 @@ def _bf16(a: torch.Tensor) -> torch.Tensor:
     """Round to bfloat16 and compute on in float32: a bf16 operand of a
     JAX dot with ``preferred_element_type=float32``."""
     return a.to(torch.bfloat16).to(torch.float32)
+
+
+# The products of the SSD's einsums that sum no index.  The JAX package's
+# einsums contract their operands in pairs (opt_einsum's path), each pair a
+# ``dot_general`` that its FLOP count includes, with two more in the
+# backward (one an operand); torch computes a pair that sums nothing as a
+# broadcast multiply, which ``FlopCounterMode`` does not count.  As custom
+# ops with flop formulas (``SSD_PRODUCT_FLOPS``) the port's counter sees
+# them too; their values are those of the multiply and of its autograd.
+@torch.library.custom_op("repro_torch::ssd_product", mutates_args=())
+def product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a * b``, broadcast (the operands aligned by the caller)."""
+    return a * b
+
+
+@torch.library.custom_op("repro_torch::ssd_product_grad", mutates_args=())
+def product_grad(grad: torch.Tensor, other: torch.Tensor,
+                 shape: list[int]) -> torch.Tensor:
+    """One operand's gradient: ``grad * other`` summed to ``shape``."""
+    return (grad * other).sum_to_size(shape)
+
+
+@product.register_fake
+def _(a, b):
+    return a.new_empty(torch.broadcast_shapes(a.shape, b.shape))
+
+
+@product_grad.register_fake
+def _(grad, other, shape):
+    return grad.new_empty(shape)
+
+
+def _product_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _product_backward(ctx, grad):
+    a, b = ctx.saved_tensors
+    return (product_grad(grad, b, list(a.shape))
+            if ctx.needs_input_grad[0] else None,
+            product_grad(grad, a, list(b.shape))
+            if ctx.needs_input_grad[1] else None)
+
+
+product.register_autograd(_product_backward, setup_context=_product_setup)
+
+
+SSD_PRODUCT_FLOPS = {
+    torch.ops.repro_torch.ssd_product:
+        lambda a, b, *_, out_shape=None, **__: 2 * math.prod(out_shape),
+    torch.ops.repro_torch.ssd_product_grad:
+        lambda grad, *_, **__: 2 * math.prod(grad)}
 
 
 def ssd_scan(x, dt, A, B, C, chunk: int, initial_state=None):
@@ -87,12 +141,14 @@ def ssd_scan(x, dt, A, B, C, chunk: int, initial_state=None):
     Ldec = torch.exp(_segsum(dAc.movedim(3, 2)))    # (b,c,h,l,l)
     scores = torch.einsum("bcln,bcsn->bcls", Cc, Bc)  # (b,c,l,s)
     y_diag = torch.einsum("bchls,bcshp->bclhp",
-                          _bf16(scores)[:, :, None] * _bf16(Ldec),
+                          product(_bf16(scores)[:, :, None], _bf16(Ldec)),
                           _bf16(xc))
 
     # 2) per-chunk states: contribution of each chunk to the running state
+    # (JAX's pairs: the decay times x, then B over l)
     decay_to_end = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)  # (b,c,l,h)
-    states = torch.einsum("bcln,bclh,bclhp->bchpn", Bc, decay_to_end, xc)
+    states = torch.einsum("bcln,bclhp->bchpn", Bc,
+                          product(decay_to_end[..., None], xc))
 
     # 3) inter-chunk recurrence: the state entering each chunk
     chunk_decay = torch.exp(dA_cum[:, :, -1, :])     # (b,c,h)
@@ -105,9 +161,11 @@ def ssd_scan(x, dt, A, B, C, chunk: int, initial_state=None):
     prev_states = torch.stack(prev, dim=1)           # (b,c,h,p,n)
 
     # 4) off-diagonal: prior state read out through the chunk
+    # (JAX's pairs: C times the decay, then the states over n)
     state_decay_in = torch.exp(dA_cum)               # (b,c,l,h)
-    y_off = torch.einsum("bcln,bchpn,bclh->bclhp", Cc, prev_states,
-                         state_decay_in)
+    y_off = torch.einsum("bclhn,bchpn->bclhp",
+                         product(Cc[:, :, :, None], state_decay_in[..., None]),
+                         prev_states)
 
     y = (y_diag + y_off).reshape(b, t, h, p)
     return y, carry
@@ -117,7 +175,9 @@ def ssd_decode_step(x, dt, A, B, C, state):
     """O(1) recurrent update.  x: (b,h,p); dt: (b,h); B,C: (b,n);
     state: (b,h,p,n) -> (y (b,h,p), new_state)."""
     dA = torch.exp(dt * A[None, :])                  # (b,h)
-    dBx = torch.einsum("bn,bh,bhp->bhpn", B, dt, x)
+    # JAX's pairs: B times dt, then times x
+    dBx = product(product(B[:, None], dt[..., None])[:, :, None],
+                  x[..., None])
     new_state = state * dA[..., None, None] + dBx
     y = torch.einsum("bhpn,bn->bhp", new_state, C)
     return y, new_state
@@ -126,12 +186,14 @@ def ssd_decode_step(x, dt, A, B, C, state):
 # ----------------------------------------------------------------------------
 # Full Mamba-2 mixer layer (in_proj -> conv -> SSD -> gated norm -> out_proj)
 # ----------------------------------------------------------------------------
-def init_ssm_params(generator: torch.Generator, cfg: ArchConfig, dtype):
-    """Random parameters on the generator's device, with the JAX package's
-    shapes and scales (the input projection split into z, xBC and dt)."""
+def init_ssm_params(generator: torch.Generator, cfg: ArchConfig, dtype,
+                    device=None):
+    """Random parameters on ``device`` (the generator's by default), with
+    the JAX package's shapes and scales (the input projection split into
+    z, xBC and dt)."""
     d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     conv_ch = di + 2 * n
-    dev = generator.device
+    dev = generator.device if device is None else device
 
     def normal(shape, scale):
         return (torch.randn(shape, generator=generator, device=dev)

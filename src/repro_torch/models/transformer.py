@@ -91,58 +91,67 @@ def _assign(stacked, i: int, tree) -> None:
 # ----------------------------------------------------------------------------
 # Parameter init
 # ----------------------------------------------------------------------------
-def init_layer_params(generator: torch.Generator, cfg: ArchConfig, dtype):
+def init_layer_params(generator: torch.Generator, cfg: ArchConfig, dtype,
+                      device=None):
     d = cfg.d_model
-    dev = generator.device
+    dev = generator.device if device is None else device
 
     def ones():
         return torch.ones((d,), dtype=dtype, device=dev)
     p = {"ln1": ones()}
     if cfg.family in ("dense", "moe", "hybrid"):
-        p.update(L.init_attn_params(generator, cfg, dtype))
+        p.update(L.init_attn_params(generator, cfg, dtype, dev))
         p["ln2"] = ones()
     if cfg.family == "dense":
         p.update(L.init_ffn_params(generator, d, cfg.d_ff,
-                                   cfg.ffn_activation, dtype))
+                                   cfg.ffn_activation, dtype, dev))
     elif cfg.family == "moe":
-        p["moe"] = MOE.init_moe_params(generator, cfg, dtype)
+        p["moe"] = MOE.init_moe_params(generator, cfg, dtype, dev)
     elif cfg.family == "ssm":
-        p["ssm"] = SSM.init_ssm_params(generator, cfg, dtype)
+        p["ssm"] = SSM.init_ssm_params(generator, cfg, dtype, dev)
     elif cfg.family == "hybrid":
-        p["ssm"] = SSM.init_ssm_params(generator, cfg, dtype)
+        p["ssm"] = SSM.init_ssm_params(generator, cfg, dtype, dev)
         p["attn_norm"] = ones()
         p["ssm_norm"] = ones()
         p.update(L.init_ffn_params(generator, d, cfg.d_ff,
-                                   cfg.ffn_activation, dtype))
+                                   cfg.ffn_activation, dtype, dev))
     else:
         raise ValueError(f"unknown family {cfg.family!r}")
     return p
 
 
-def init_params(generator: torch.Generator, cfg: ArchConfig) -> dict:
-    """Random parameters from ``generator``, on its device, with the JAX
-    package's shapes, scales and stacking.
+def init_params(generator: torch.Generator, cfg: ArchConfig,
+                device=None) -> dict:
+    """Random parameters from ``generator``, on ``device`` (the
+    generator's by default), with the JAX package's shapes, scales and
+    stacking.
 
     Each stacked leaf is allocated once and filled layer by layer, so the
     peak is the model plus one layer, not the model twice (qwen2-moe is
     28.6 GB in bfloat16)."""
     dtype = _dtype(cfg)
-    dev = generator.device
+    dev = generator.device if device is None else device
     d, v = cfg.d_model, cfg.vocab_size
     emb = (torch.randn((v, d), generator=generator, device=dev)
            * 0.02).to(dtype)
     unemb = (torch.randn((d, v), generator=generator, device=dev)
              * d ** -0.5).to(dtype)
-    layer = init_layer_params(generator, cfg, dtype)
+    layer = init_layer_params(generator, cfg, dtype, dev)
     layers = _empty_stacked(layer, cfg.num_layers)
     _assign(layers, 0, layer)
     for i in range(1, cfg.num_layers):
-        layer = init_layer_params(generator, cfg, dtype)
+        layer = init_layer_params(generator, cfg, dtype, dev)
         _assign(layers, i, layer)
     del layer
     return {"embed": emb, "unembed": unemb,
             "final_norm": torch.ones((d,), dtype=dtype, device=dev),
             "layers": layers}
+
+
+def abstract_params(cfg: ArchConfig) -> dict:
+    """The parameter tree's shapes and dtypes on the meta device, no
+    storage allocated (JAX: ``jax.eval_shape`` of ``init_params``)."""
+    return init_params(torch.Generator(), cfg, device="meta")
 
 
 # ----------------------------------------------------------------------------
@@ -482,6 +491,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device=None,
     # dense / moe: uniform stacked KV, int8 on request
     kv_dtype = torch.int8 if cfg.kv_cache_dtype == "int8" else dtype
     return _kv_zeros((lcount, batch, max_seq) + kvshape, kv_dtype, device)
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int):
+    """``init_cache``'s tree on the meta device, no storage allocated
+    (JAX: ``jax.eval_shape`` of ``init_cache``)."""
+    return init_cache(cfg, batch, max_seq, device="meta")
 
 
 def decode_cache_from_prefill(cfg: ArchConfig, pcache, max_seq: int,

@@ -41,7 +41,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.parallel import (average_over_dp, gather_tree,
                                          leaf_splits, shard_tree)
 from repro_torch.optim import AdamW
-from repro_torch.optim.adamw import AdamWState
+from repro_torch.optim.adamw import AdamWState, Zero, zero_dims
 from repro_torch.optim.compression import error_feedback_update
 
 
@@ -82,10 +82,21 @@ def state_layout(cfg: ArchConfig, ctx, grad_compression: bool = False):
             pl if grad_compression else None)
 
 
+def zero_plan(params, cfg: ArchConfig, ctx) -> Zero | None:
+    """ZeRO-1's split of the moments of ``params`` (this rank's model
+    shard) over ``ctx``'s data group; None over one data rank (nothing to
+    split)."""
+    if ctx.dp_size == 1:
+        return None
+    split = leaf_splits(params, T.param_layout(cfg, ctx.tp_size))
+    return Zero(zero_dims(params, ctx.dp_size, split), ctx.dp_rank,
+                ctx.dp_size, ctx.dp_group)
+
+
 def make_train_step(cfg: ArchConfig, opt: AdamW,
                     grad_compression: bool = False,
                     num_microbatches: int = 1, aux_coef: float = 0.01,
-                    ctx=None):
+                    ctx=None, zero1: bool = False):
     """-> f(state, batch) -> (state, metrics); ``state`` is (params,
     AdamWState, residual), ``metrics`` holds ``loss``, ``nll``, ``aux``
     and ``grad_norm`` (float32 scalars on the device).  The loss is
@@ -99,8 +110,14 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
     ``ctx``: ``state`` holds this rank's shards (``state_layout``) and
     ``batch`` its rows (``SyntheticLMDataset.rank_batch_at``); microbatches
     split the rows, the loss and the gradients are the data group's means,
-    and the grad norm is that of the whole gradient.
+    and the grad norm is that of the whole gradient.  ``zero1`` (with
+    ``ctx``, ZeRO-1): the moments are this data rank's slices
+    (``zero_plan``, ``AdamW.init(zero=)``), and the parameters are
+    all-gathered over the data group after each update; over one data
+    rank it changes nothing.
     """
+    if zero1 and ctx is None:
+        raise ValueError("zero1 shards the moments over a mesh: give ctx")
     layout = T.param_layout(cfg, ctx.tp_size) if ctx is not None else None
     tp_group = ctx.tp_group if ctx is not None else None
 
@@ -136,8 +153,9 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
         if grad_compression:
             grads, residual = error_feedback_update(grads, residual, split,
                                                     tp_group)
-        new_params, new_opt, gnorm = opt.update(grads, opt_state, params,
-                                                split, tp_group)
+        new_params, new_opt, gnorm = opt.update(
+            grads, opt_state, params, split, tp_group,
+            zero_plan(params, cfg, ctx) if zero1 else None)
         metrics = dict(metrics, loss=lval, grad_norm=gnorm)
         return (new_params, new_opt, residual), metrics
 

@@ -58,6 +58,8 @@ print("NEW", sorted(n for n in sys.modules
                                      "repro_torch.train.",
                                      "repro_torch.examples."))))
 print("BAD", bad)
+import torch.distributed as dist
+print("PG", dist.is_available() and dist.is_initialized())
 """
 
 
@@ -69,6 +71,8 @@ def test_port_imports_neither_jax_nor_repro():
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
     assert int(lines["MODULES"]) > 20
     assert lines["BAD"] == "[]", lines["BAD"]
+    # importing the dry-run starts no (fake) process group
+    assert lines["PG"] == "False"
     new = ast.literal_eval(lines["NEW"])
     assert "repro_torch.core.reuse" in new
     for kern in ("patch_reuse", "patch_bitmap", "ssd_scan"):
@@ -87,7 +91,8 @@ def test_port_imports_neither_jax_nor_repro():
                 "models.parallel", "kernels.autotune", "tree", "optim.adamw",
                 "optim.schedules", "optim.compression", "data.pipeline",
                 "checkpoint.store", "launch.model_flops", "train.trainer",
-                "launch.train", *(f"examples.{name}" for name in EXAMPLES)):
+                "launch.train", "launch.dryrun", "launch.flops",
+                *(f"examples.{name}" for name in EXAMPLES)):
         assert f"repro_torch.{mod}" in new
 
 

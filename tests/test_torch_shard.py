@@ -54,7 +54,18 @@ in that one group.  What is held, and how tightly:
   to the gathered state bit for bit, and the next step from it matches
   the sharded next step at (b)'s bounds;
 * (e) ``prefill`` and two ``decode_step`` under ``ctx`` against the
-  unsharded ones at (a)'s bounds.
+  unsharded ones at (a)'s bounds;
+* (f) ZeRO-1 (``make_train_step(zero1=True)``: the moments split over the
+  data group, the parameters all-gathered after the update) against the
+  sharded step without it, bit for bit (the same gradients, an
+  elementwise update on slices), and against the unsharded step at (b)'s
+  bounds, its moments gathered within ``LEAF_RTOL`` + ``GN_RTOL`` of each
+  leaf's largest value (a moment is the gradient times the clip scale,
+  which carries the grad norm's error; twice that for the second);
+* (g) the collective bytes and counts a dry-run cell's step
+  (``launch.dryrun.step_callable``) records when it runs on this gloo
+  group equal what ``dryrun._trace_cell`` records for the same cell on a
+  fake (2, 2) group.
 """
 import contextlib
 import dataclasses
@@ -68,8 +79,9 @@ import torch.distributed as dist
 
 from repro_torch import tree as tree_util
 from repro_torch.checkpoint import load_checkpoint
-from repro_torch.configs import ARCH_NAMES, SHAPES, get_arch
+from repro_torch.configs import ARCH_NAMES, SHAPES, ShapeConfig, get_arch
 from repro_torch.data import SyntheticLMDataset, make_batch_specs
+from repro_torch.launch import dryrun as DRY
 from repro_torch.launch import mesh as M
 from repro_torch.launch import train as train_cli
 from repro_torch.models import moe as MOE
@@ -77,9 +89,10 @@ from repro_torch.models import parallel as PAR
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import ShardCtx
 from repro_torch.optim import AdamW
+from repro_torch.optim.adamw import zero_gather, zero_slice
 from repro_torch.train import TrainConfig, Trainer
 from repro_torch.train.trainer import (_value_and_grad, make_train_step,
-                                       state_layout)
+                                       state_layout, zero_plan)
 
 pytestmark = pytest.mark.filterwarnings(
     "ignore:jax.experimental.shard_map is deprecated:DeprecationWarning")
@@ -131,6 +144,19 @@ GRAD_CASES = ("dense_kv2", "dense_v511", "moe_ep", "moe_tp", "ssm",
               "hybrid")
 JAX_CASES = ("moe_ep", "hybrid")
 DECODE_CASES = ("dense_kv2", "dense_kv1", "moe_ep", "ssm", "hybrid")
+ZERO_CASES = ("dense_kv2", "moe_ep", "ssm", "hybrid")
+# dry-run cells on this group: name -> (arch, shape); the dense cells
+# TP-fold (a small model, the batch divides the 4 ranks)
+TRACE_CELLS = {
+    "moe_train": ("qwen2-moe-a2.7b", ShapeConfig("smoke_train", SEQ, BATCH,
+                                                 "train")),
+    "dense_train": ("llama3-8b", ShapeConfig("smoke_train", SEQ, BATCH,
+                                             "train")),
+    "moe_decode": ("qwen2-moe-a2.7b", ShapeConfig("smoke_decode", SEQ,
+                                                  BATCH, "decode")),
+    "dense_prefill": ("llama3-8b", ShapeConfig("smoke_prefill", SEQ, BATCH,
+                                               "prefill")),
+}
 
 
 def _case_cfg(case):
@@ -326,6 +352,82 @@ def _ckpt_case(ctx, root):
                 hist=hist)
 
 
+def _zero_moments(state, zero):
+    """This data rank's slices of whole moments (copies)."""
+    def cut(tree):
+        return tree_util.unflatten(tree, (
+            zero_slice(a, d, zero).clone() for a, d in zip(
+                tree_util.leaves(tree), zero.dims)))
+    return state._replace(m=cut(state.m), v=cut(state.v))
+
+
+def _zero_case(cfg, ctx):
+    """One sharded step with and without ZeRO-1 from the same state and
+    rows, and the unsharded step; the ZeRO moments gathered over the data
+    group, then everything over the model axis."""
+    opt = AdamW(lr=LR)
+    params = _params(cfg)
+    state = (params, opt.init(params), torch.zeros(()))
+    ds = _dataset(cfg)
+    layout = state_layout(cfg, ctx)
+    local = PAR.shard_tree(state, layout, ctx)
+    batch = ds.rank_batch_at(0, ctx, device="cpu")
+    plain, m_plain = make_train_step(cfg, opt, ctx=ctx)(local, batch)
+    zero = zero_plan(local[0], cfg, ctx)
+    zstate = (local[0], _zero_moments(local[1], zero), local[2])
+    got, m_got = make_train_step(cfg, opt, ctx=ctx, zero1=True)(zstate,
+                                                                 batch)
+    moments = got[1]._replace(m=zero_gather(got[1].m, zero),
+                              v=zero_gather(got[1].v, zero))
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_util.leaves((plain[0], plain[1], m_plain)),
+        tree_util.leaves((got[0], moments, m_got))))
+    if cfg.family == "moe":     # the aux: the data ranks' mean (_step_case)
+        loss, grads = _row_group_grads(params, ds, cfg, ctx, 0.01)
+        ref_p, ref_o, gn = opt.update(grads, state[1], params)
+        ref, m_ref = (ref_p, ref_o), {"loss": loss, "grad_norm": gn}
+    else:
+        ref, m_ref = make_train_step(cfg, opt)(
+            state, ds.batch_at(0, device="cpu"))
+    full = PAR.gather_tree((got[0], moments, got[2]), layout, ctx)
+    return dict(same=same, split=sum(d is not None for d in zero.dims),
+                whole=sum(d is None for d in zero.dims),
+                slice_share=sum(a.numel() for a in tree_util.leaves(
+                    got[1].m)) / sum(a.numel() for a in tree_util.leaves(
+                        local[1].m)),
+                ref_loss=float(m_ref["loss"]), got_loss=float(m_got["loss"]),
+                ref_gn=float(m_ref["grad_norm"]),
+                got_gn=float(m_got["grad_norm"]),
+                ref_params=_np(ref[0]), got_params=_np(full[0]),
+                paths=_paths(params), ref_m=_np(ref[1].m),
+                got_m=_np(full[1].m), ref_v=_np(ref[1].v),
+                got_v=_np(full[1].v))
+
+
+def _cell_args(cfg, shape, mesh):
+    """Zeros of the shapes a dry-run cell gives this rank (its tokens
+    vocabulary index 0)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fake, _ = DRY.input_specs(cfg, shape, mesh)
+    return tree_util.tree_map(
+        lambda a: torch.zeros(a.shape, dtype=a.dtype)
+        if isinstance(a, torch.Tensor) else a, fake)
+
+
+def _executed_records(mesh) -> dict:
+    """Each ``TRACE_CELLS`` step run once on this group: what it issued."""
+    out = {}
+    for name, (arch, shape) in TRACE_CELLS.items():
+        cfg = _cfg(arch)
+        args = _cell_args(cfg, shape, mesh)
+        step = DRY.step_callable(cfg, shape, mesh)
+        PAR.reset_collective_counts()
+        step(*args)
+        out[name] = PAR.collective_bytes()
+    return out
+
+
 def _rank_checks(root):
     torch.manual_seed(0)
     mesh = M.make_elastic_mesh(2)
@@ -343,6 +445,8 @@ def _rank_checks(root):
                      for k in DECODE_CASES}
     out["remat"] = _remat_case(ctx)
     out["ckpt"] = _ckpt_case(ctx, root)
+    out["zero"] = {k: _zero_case(_case_cfg(k), ctx) for k in ZERO_CASES}
+    out["executed"] = _executed_records(mesh)
     return out
 
 
@@ -733,3 +837,47 @@ def test_train_cli_mesh_needs_sharded(capsys):
         train_cli.main(["--arch", "llama3-8b", "--smoke", "--device", "cpu",
                         "--mesh", "2"])
     assert "--mesh counts the ranks of --sharded" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("case", ZERO_CASES)
+def test_zero1_step_matches_unsharded(runs, case):
+    """(f): ZeRO-1 bit for bit against the sharded step without it, and
+    the unsharded step's loss, grad norm, parameters and moments."""
+    ssm = _case_cfg(case).family in ("ssm", "hybrid")
+    for r in runs["ranks"]:
+        out = r["zero"][case]
+        assert out["same"], case
+        # every stacked leaf splits over the two data ranks
+        assert out["split"] > 0 and out["slice_share"] < 0.75, out
+        assert abs(out["got_loss"] - out["ref_loss"]) <= STEP_RTOL * abs(
+            out["ref_loss"]), case
+        assert abs(out["got_gn"] - out["ref_gn"]) <= GN_RTOL[ssm] * abs(
+            out["ref_gn"]), case
+        _params_close(out["got_params"], out["ref_params"])
+        for key, scale in (("m", 1.0), ("v", 2.0)):
+            for path, got, ref in zip(out["paths"], out[f"got_{key}"],
+                                      out[f"ref_{key}"]):
+                assert got.shape == ref.shape, path
+                # a moment is the clipped gradient: its leaf's bound plus
+                # the grad norm's (the clip scale), twice that for v
+                rtol = scale * (LEAF_RTOL[ssm and path not in
+                                          ABOVE_THE_MIXERS] + GN_RTOL[ssm])
+                d = np.abs(got - ref).max()
+                assert d <= rtol * np.abs(ref).max(), (case, key, path, d)
+
+
+@pytest.mark.parametrize("cell", TRACE_CELLS)
+def test_executed_collectives_match_fake_trace(runs, cell):
+    """(g): rank 0's step on the gloo group and every other rank's issue
+    exactly the collectives ``_trace_cell`` records on a fake (2, 2)
+    group of the same cell."""
+    arch, shape = TRACE_CELLS[cell]
+    with M.fake_process_group(4):
+        mesh = M.make_elastic_mesh(2)
+        assert M.mesh_shape(mesh) == {"data": 2, "model": 2}
+        want = DRY._trace_cell(_cfg(arch), shape, mesh)["collective_bytes"]
+    assert want["total"] > 0
+    if shape.kind == "train":
+        assert want["counts"]["all-gather"] > 0       # ZeRO-1's
+    for r in runs["ranks"]:
+        assert r["executed"][cell] == want, (cell, r["rank"])
