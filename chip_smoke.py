@@ -176,7 +176,12 @@ no result line):
                  the ``ssd_scan`` kernel under the mesh bit for bit
                  against ``ctx=None`` (one call a layer each); (i)
                  ``launch.train --sharded`` takes 2 steps at smoke
-                 geometry through its CLI.
+                 geometry through its CLI; (j) ZeRO-3: (g)'s two states
+                 take ``make_train_step(zero3=True)``'s step at degree 1
+                 bit for bit against the unsharded step, every leaf
+                 gathered through the one-rank group where it is used
+                 (twice a layer leaf under remat) and its gradient
+                 reduce-scattered, the counts and their host us printed.
 19. dryrun     — the dry-run (``launch.dryrun``) on torch's fake process
                  group, fake CUDA tensors, no card memory: (a)
                  ``run_cell`` of mamba2-130m x train_4k (TP-folded onto
@@ -193,7 +198,17 @@ no result line):
                  traces of the train phase's (g) steps give (g)'s model-
                  and data-axis all-reduce counts exactly; (d) llama3-8b x
                  decode_32k through the CLI (``dryrun.main``), its record
-                 read back from ``--out``.  The (a) cell of llama3-8b is
+                 read back from ``--out``; (e) ZeRO-3 (``fsdp``):
+                 ``run_cell(fsdp=True)`` of mamba2-130m x train_4k beside
+                 (a)'s ZeRO-1 record, and llama3-8b x train_4k at full
+                 width cut to 16 layers (the data degree 16 still divides
+                 its layer axis), one microbatch, traced with and without
+                 ``fsdp`` on the 16 x 16 group: the arguments less exactly
+                 the sliced parameter bytes x (dp - 1) / dp, the same
+                 FLOPs, a lower peak; and hymba's 4-layer ZeRO-3 step
+                 traced on a fake (1, 1) group predicts one real step's
+                 peak within ``DRYRUN_MEM_RTOL``, its gathers and scatters
+                 counted the same.  The (a) cell of llama3-8b is
                  (d)'s record.  The traces need the host alone: they run
                  in a worker process started after the kernels phase
                  (``start_dryrun_traces``), beside the card's phases, and
@@ -1625,7 +1640,7 @@ def _sharded_steps(torch, name, cfg, step, state, batch, ctx, opt):
     ``remat_save_collectives``: loss, grad norm, parameters and moments
     bit for bit.  Prints the collectives a step and their host us; returns
     the model- and data-axis all-reduces a step by
-    ``remat_save_collectives``."""
+    ``remat_save_collectives``.  Then (j), ``_zero3_step``."""
     from repro_torch import tree as tree_util
     from repro_torch.models import parallel as PAR
     from repro_torch.models import transformer as T
@@ -1659,8 +1674,54 @@ def _sharded_steps(torch, name, cfg, step, state, batch, ctx, opt):
         require(counts["dp_all_reduce"] > 0, f"{name}: (g) no collective")
         seen[save] = (counts["tp_all_reduce"], counts["dp_all_reduce"])
         del got, mgot
+    _zero3_step(torch, name, cfg, ref, mref, state, batch, ctx, opt)
     del ref, mref
     return seen
+
+
+def _zero3_step(torch, name, cfg, ref, mref, state, batch, ctx, opt):
+    """(j): one ``make_train_step(zero3=True)`` step at degree 1 from
+    ``state`` (its ZeRO-3 slices: every leaf whole on the one data rank)
+    against the unsharded step's ``ref`` / ``mref``: loss, grad norm,
+    parameters and moments bit for bit, every leaf gathered through the
+    one-rank group where it is used (twice a layer leaf under remat) and
+    its gradient reduce-scattered.  Prints the gathers and scatters and
+    their host us."""
+    from repro_torch import tree as tree_util
+    from repro_torch.models import parallel as PAR
+    from repro_torch.train import make_train_step
+    from repro_torch.train.trainer import zero3_plan, zero3_slices
+
+    plan = zero3_plan(cfg, ctx)
+    sliced = zero3_slices(state, plan)
+    require(all(a is b for a, b in zip(tree_util.leaves(sliced),
+                                       tree_util.leaves(state))),
+            f"{name}: (j) a slice copied a leaf at degree 1")
+    step = make_train_step(cfg, opt, ctx=ctx, zero3=True)
+    torch.cuda.synchronize()
+    PAR.reset_collective_counts()
+    dt, (got, mgot) = _synced_s(torch, lambda: step(sliced, batch))
+    counts = PAR.collective_counts()
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_util.leaves((ref, mref)), tree_util.leaves((got, mgot))))
+    n_layer = len(tree_util.leaves(state[0]["layers"]))
+    gathers, scatters = counts["dp_param_gather"], counts["dp_grad_scatter"]
+    n = sum(v for k, v in counts.items() if k != "host_s")
+    print(f"  {name}: (j) ZeRO-3 step at degree 1: loss "
+          f"{float(mgot['loss'])!r} / {float(mref['loss'])!r}, grad norm "
+          f"{float(mgot['grad_norm'])!r} / {float(mref['grad_norm'])!r}; "
+          f"parameters, moments and metrics bit-equal: {same}; {gathers} "
+          f"parameter gathers + {scatters} gradient scatters ({n_layer} "
+          f"leaves x {cfg.num_layers} layers, remat) + "
+          f"{counts['tp_all_reduce']} model-axis + "
+          f"{counts['dp_all_reduce']} data-axis all-reduces, "
+          f"{counts['host_s'] / max(n, 1) * 1e6:.1f} us of host time each "
+          f"({counts['host_s'] * 1e3:.2f} ms in all), step {dt:.4f} s")
+    require(same, f"{name}: (j) the ZeRO-3 step is not bit-equal")
+    require(gathers == 2 * n_layer * cfg.num_layers + 3
+            and scatters == n_layer * cfg.num_layers + 3,
+            f"{name}: (j) {gathers} gathers, {scatters} scatters")
+    del got, mgot
 
 
 def mesh_shape_of(ctx) -> dict:
@@ -1933,12 +1994,16 @@ def _train_body(torch, ctx):
 # GB); the bound is ten times the larger.
 DRYRUN_MEM_RTOL = 0.02
 DRYRUN_CELLS = (("mamba2-130m", "train_4k"), ("llama3-8b", "decode_32k"))
+# (e): llama3-8b x train_4k at full width cut to 16 of 32 layers, which the
+# data degree 16 still divides (a rank owns whole layers)
+DRYRUN_FSDP_LAYERS = 16
 
 
 def _dryrun_cfgs() -> dict:
-    """(c)'s and (b)'s train steps: name -> (arch, layers, seq, save);
-    (c) the train phase's (g) steps, (b) its hymba-1.5b whole step and
-    qwen2-moe 2-layer step."""
+    """(c)'s, (b)'s and (e)'s train steps: name -> (arch, layers, seq,
+    save); (c) the train phase's (g) steps, (b) its hymba-1.5b whole step
+    and qwen2-moe 2-layer step, (e) hymba's 4-layer (g) state under
+    ZeRO-3 (traced with ``fsdp``)."""
     cells = {}
     for arch, layers, seq in (("qwen2-moe-a2.7b", TRAIN_MOE_LAYERS,
                                TRAIN_MOE_SEQ),
@@ -1948,6 +2013,8 @@ def _dryrun_cfgs() -> dict:
     cells["b", "hymba-1.5b"] = ("hymba-1.5b", None, TRAIN_SEQ, False)
     cells["b", "qwen2-moe-a2.7b"] = ("qwen2-moe-a2.7b", TRAIN_MOE_LAYERS,
                                      TRAIN_MOE_SEQ, False)
+    cells["e", "hymba-1.5b"] = ("hymba-1.5b", TRAIN_FT_LAYERS, TRAIN_FT_SEQ,
+                                False)
     return cells
 
 
@@ -1966,8 +2033,9 @@ def _train_shape(arch: str, seq: int):
 def dryrun_traces() -> dict:
     """Every trace of the dryrun phase, on fakes: (a) ``run_cell`` of
     ``DRYRUN_CELLS[0]``, (d) ``DRYRUN_CELLS[1]`` through the CLI (its
-    record read back from ``--out``), and the traces of ``_dryrun_cfgs``
-    on a fake (1, 1) group, the model axis kept as (g)'s mesh keeps it.
+    record read back from ``--out``), the traces of ``_dryrun_cfgs``
+    on a fake (1, 1) group, the model axis kept as (g)'s mesh keeps it,
+    and (e)'s ZeRO-3 pairs (``_fsdp_pairs``).
     It runs on the host alone (fake CUDA tensors, no card memory), so the
     smoke runs it in a worker process beside the card's phases
     (``start_dryrun_traces``); ``memory_allocated`` is read in that
@@ -2003,10 +2071,97 @@ def dryrun_traces() -> dict:
         with mesh_mod.fake_process_group(1):
             out["traces"][key] = D._trace_cell(
                 _dryrun_cfg(arch, layers, save), _train_shape(arch, seq),
-                mesh_mod.make_smoke_mesh(), device="cuda", tp_fold=False)
+                mesh_mod.make_smoke_mesh(), device="cuda", tp_fold=False,
+                fsdp=key[0] == "e")
+    t2 = time.perf_counter()
+    out["fsdp"] = _fsdp_pairs(out["cells"][DRYRUN_CELLS[0]])
+    out["e_s"] = time.perf_counter() - t2
     out["mem_after"] = torch.cuda.memory_allocated()
     out["s"] = time.perf_counter() - t0
     return out
+
+
+def _sliced_drop(cfg, shape, mesh) -> tuple:
+    """-> (what ``--fsdp`` takes off a train cell's arguments: the sliced
+    parameters' model-shard bytes times (dp - 1) / dp, the data degree,
+    the stacked leaves sliced on their layer axis, those sliced inside
+    the layer); in a fake group."""
+    from repro_torch import tree as tree_util
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import zero3_plan
+    ctx = D._ctx(mesh, D.choose_tp_fold(cfg, shape, D._mesh_size(mesh)))
+    plan = zero3_plan(cfg, ctx)
+    shard = T.shard_params(T.abstract_params(cfg), cfg, ctx)
+    drop = sum(a.numel() * a.element_size() // plan.size * (plan.size - 1)
+               for a, d in zip(tree_util.leaves(shard), plan.dims)
+               if d is not None)
+    index = tree_util.unflatten(shard, range(len(plan.dims)))
+    stacked = [plan.dims[i] for i in tree_util.leaves(index["layers"])]
+    return drop, plan.size, stacked.count(0), sum(
+        d not in (None, 0) for d in stacked)
+
+
+def _fsdp_pairs(zero1_cell: dict) -> dict:
+    """(e)'s traces, each a (ZeRO-1, ZeRO-3, drop) pair:
+    ``run_cell(fsdp=True)`` of ``DRYRUN_CELLS[0]`` beside (a)'s record
+    ``zero1_cell``, and llama3-8b x train_4k at full width cut to
+    ``DRYRUN_FSDP_LAYERS`` layers, one microbatch, traced with and without
+    ``fsdp`` on the fake 16 x 16 group."""
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as mesh_mod
+    arch, shape = DRYRUN_CELLS[0]
+    pairs = {}
+    rec = D.run_cell(arch, shape, False, verbose=False, fsdp=True)
+    with mesh_mod.fake_process_group(256):
+        drop = _sliced_drop(get_arch(arch), SHAPES[shape],
+                            mesh_mod.make_production_mesh())
+    pairs[f"{arch} x {shape} (run_cell)"] = (zero1_cell, rec, drop)
+    cfg = get_arch("llama3-8b").scaled(num_layers=DRYRUN_FSDP_LAYERS)
+    with mesh_mod.fake_process_group(256):
+        mesh = mesh_mod.make_production_mesh()
+        z1, z3 = (D._trace_cell(cfg, SHAPES["train_4k"], mesh, force_m=1,
+                                device="cuda", fsdp=f) for f in (False, True))
+        drop = _sliced_drop(cfg, SHAPES["train_4k"], mesh)
+    pairs[f"llama3-8b x train_4k, {DRYRUN_FSDP_LAYERS} layers, one "
+          f"microbatch (_trace_cell)"] = (z1, z3, drop)
+    return pairs
+
+
+def _hold_fsdp(pairs: dict) -> None:
+    """(e): each ZeRO-3 trace against its ZeRO-1 twin: the arguments less
+    exactly the sliced parameter bytes, the same FLOPs, a lower predicted
+    peak (arguments + temp), gathers and scatters in place of ZeRO-1's
+    post-update all-gathers."""
+    for label, (z1, z3, (drop, dp, axis, inner)) in pairs.items():
+        require(z3.get("status", "ok") == "ok",
+                f"(e) {label}: {z3.get('error')}\n{z3.get('traceback')}")
+        m1, m3 = z1["memory_analysis"], z3["memory_analysis"]
+        a1, a3 = m1["argument_size_in_bytes"], m3["argument_size_in_bytes"]
+        p1 = a1 + m1["temp_size_in_bytes"]
+        p3 = a3 + m3["temp_size_in_bytes"]
+        c1, c3 = (z["collective_bytes"] for z in (z1, z3))
+        print(f"  (e) {label}, dp {dp} ({axis} stacked leaves sliced on the "
+              f"layer axis, {inner} inside the layer): arguments "
+              f"{_gb(a1)} -> {_gb(a3)} (drop {a1 - a3}, predicted "
+              f"{drop}); peak {_gb(p1)} -> {_gb(p3)} (temp "
+              f"{_gb(m1['temp_size_in_bytes'])} -> "
+              f"{_gb(m3['temp_size_in_bytes'])}); flops {z1['flops']:.6e} "
+              f"-> {z3['flops']:.6e}; collective bytes "
+              f"{c1['total']:.4e} -> {c3['total']:.4e} (counts "
+              f"{c1['counts']} -> {c3['counts']}); traces "
+              f"{z1['trace_s']} / {z3['trace_s']} s")
+        require(a1 - a3 == drop > 0, f"(e) {label}: arguments fell by "
+                                     f"{a1 - a3}, predicted {drop}")
+        require(z3["flops"] == z1["flops"], f"(e) {label}: flops moved")
+        if "flops_global" in z1:
+            require(z3["flops_global"] == z1["flops_global"],
+                    f"(e) {label}: global flops moved")
+        require(p3 < p1, f"(e) {label}: peak {p3} not below {p1}")
+        require(c3["counts"]["reduce-scatter"] > 0
+                and c1["counts"]["reduce-scatter"] == 0,
+                f"(e) {label}: scatters {c1['counts']} -> {c3['counts']}")
 
 
 def start_dryrun_traces():
@@ -2040,10 +2195,11 @@ def _gb(n) -> str:
     return f"{n / 1e9:.3f} GB"
 
 
-def _memory_model(torch, arch: str, rec: dict):
-    """(b) for one step: the fake (1, 1) trace ``rec``'s peak against one
-    real step of ``dryrun.step_callable`` in a one-rank NCCL group, and
-    the all-reduces each counts."""
+def _memory_model(torch, key: tuple, rec: dict):
+    """(b) for one step (``key`` of ``_dryrun_cfgs``; (e) the ZeRO-3 step
+    under ``fsdp``): the fake (1, 1) trace ``rec``'s peak against one real
+    step of ``dryrun.step_callable`` in a one-rank NCCL group, and the
+    collectives each counts."""
     import gc
 
     from repro_torch import tree as tree_util
@@ -2053,19 +2209,25 @@ def _memory_model(torch, arch: str, rec: dict):
     from repro_torch.models import parallel as PAR
     from repro_torch.models import transformer as T
     from repro_torch.optim import AdamW
+    from repro_torch.train.trainer import zero3_plan, zero3_slices
 
-    _, layers, seq, save = _dryrun_cfgs()["b", arch]
+    arch, fsdp = key[1], key[0] == "e"
+    _, layers, seq, save = _dryrun_cfgs()[key]
     cfg = _dryrun_cfg(arch, layers, save)
     mem = rec["memory_analysis"]
     predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
     with mesh_mod.process_group(device="cuda"):
-        step = D.step_callable(cfg, _train_shape(arch, seq),
-                               mesh_mod.make_smoke_mesh(), tp_fold=False)
+        mesh = mesh_mod.make_smoke_mesh()
+        step = D.step_callable(cfg, _train_shape(arch, seq), mesh,
+                               tp_fold=False, fsdp=fsdp)
         params = T.init_params(
             torch.Generator(device="cuda").manual_seed(0), cfg)
         opt = AdamW()
         state = (params, opt.init(params),
                  torch.zeros((), device="cuda"))
+        if fsdp:        # the slices: the leaves themselves on one rank
+            state = zero3_slices(state, zero3_plan(cfg, D._ctx(mesh,
+                                                               False)))
         del params
         ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=seq,
                                 global_batch=TRAIN_BATCH, seed=0,
@@ -2088,7 +2250,8 @@ def _memory_model(torch, arch: str, rec: dict):
     torch.cuda.empty_cache()
     out = mem["output_size_in_bytes"]
     gap = (predicted - measured) / measured
-    print(f"  {arch} ({cfg.num_layers} layers, {TRAIN_BATCH} x {seq}): "
+    print(f"  {'(e) ' if fsdp else ''}{arch} ({cfg.num_layers} layers, "
+          f"{TRAIN_BATCH} x {seq}{', ZeRO-3' if fsdp else ''}): "
           f"predicted peak {_gb(predicted)} = arguments "
           f"{_gb(mem['argument_size_in_bytes'])} (the train state and the "
           f"batch; {_gb(args)} on the card) + temp "
@@ -2105,9 +2268,13 @@ def _memory_model(torch, arch: str, rec: dict):
     require(math.isfinite(loss), f"(b) {arch}: loss {loss}")
     require(abs(gap) <= DRYRUN_MEM_RTOL, f"(b) {arch}: peak {gap:+.4f}")
     traced = rec["collective_axes"]
-    for k in ("tp_all_reduce", "dp_all_reduce"):
+    kinds = ("tp_all_reduce", "dp_all_reduce") + (
+        ("dp_param_gather", "dp_grad_scatter") if fsdp else ())
+    for k in kinds:
         require(counts[k] == traced[k],
                 f"(b) {arch}: {k} {counts[k]} run, {traced[k]} traced")
+    require(not fsdp or counts["dp_param_gather"] > 0,
+            f"(e) {arch}: no parameter gathered")
 
 
 @phase("dryrun")
@@ -2134,6 +2301,8 @@ def dryrun_phase(torch, g_counts, traced):
           f"{traced['mem_after']} after")
     require(traced["mem_after"] == traced["mem_before"],
             "(a) the dry-run took card memory")
+    print(f"  (e) the ZeRO-3 traces took {traced['e_s']:.2f} s in the worker")
+    _hold_fsdp(traced["fsdp"])
     for key, rec in traced["traces"].items():
         if key[0] != "c":
             continue
@@ -2147,9 +2316,10 @@ def dryrun_phase(torch, g_counts, traced):
                 f"(c) {arch} save {save}: {got} against "
                 f"{g_counts[arch][save]}")
     t0 = time.perf_counter()
-    for arch in ("hymba-1.5b", "qwen2-moe-a2.7b"):
-        _memory_model(torch, arch, traced["traces"]["b", arch])
-    print(f"  (b)'s real steps in {time.perf_counter() - t0:.2f} s")
+    for key in (("b", "hymba-1.5b"), ("b", "qwen2-moe-a2.7b"),
+                ("e", "hymba-1.5b")):
+        _memory_model(torch, key, traced["traces"][key])
+    print(f"  (b)'s and (e)'s real steps in {time.perf_counter() - t0:.2f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -3777,6 +3947,10 @@ def dit_phase(torch):
 # serving: the schedulers and the serve_diffusion CLI at full width
 # ---------------------------------------------------------------------------
 SERVING_REQUESTS, SERVING_SLOTS, SERVING_BURST = 8, 4, 2
+# DDIM steps of the in-process serve_diffusion.main runs (serving (d),
+# autotune (e)): their checks scale with the steps, so 12 hold what 25 did
+# in about half the time
+CLI_STEPS = 12
 SERVING_LOAD = 0.75          # (b), (c): arrival rate / the t = 0 drain's
 FLOAT_ROUTE_PER_STEP = {"pssa_attention": 9, "cross_attention_tips": 9,
                         "bitslice_matmul": 0}
@@ -4150,7 +4324,7 @@ def serving_phase(torch, eng):
 
     # (d)
     argv = ["--continuous", "--slots", "4", "--requests", "4", "--steps",
-            "25", "--guidance", "7.5", "--ledger", "--kernels",
+            str(CLI_STEPS), "--guidance", "7.5", "--ledger", "--kernels",
             "self_attention=fused,cross_attention=fused,ffn=dbsc"]
     runtime.reset_launch_counts()
     buf = io.StringIO()
@@ -4752,7 +4926,8 @@ def autotune_phase(torch, eng):
             ("autotuned", FLOAT_ROUTE_PER_STEP, 0),
             ("ffn=dbsc,ffn_quant=int8", no_kernel, int8_per_step)):
         argv = ["--continuous", "--slots", str(AUTOTUNE_SLOTS), "--requests",
-                str(AUTOTUNE_SLOTS), "--steps", "25", "--guidance", "7.5",
+                str(AUTOTUNE_SLOTS), "--steps", str(CLI_STEPS),
+                "--guidance", "7.5",
                 "--ledger", "--kernels", spec]
         devices = []
         real = torch._int_mm

@@ -32,3 +32,15 @@ def with_precision(cfg: PipelineConfig,
     """Pipeline config with the TIPS/DBSC precision runtime set."""
     return dataclasses.replace(
         cfg, unet=dataclasses.replace(cfg.unet, precision=policy))
+
+
+# the kernels on the attention (self + cross), PSXU bitmap and reuse delta
+FUSED = with_kernel_policy(CONFIG, KernelPolicy.fused())
+SMOKE_FUSED = with_kernel_policy(SMOKE, KernelPolicy.fused())
+
+# the paper's operating points for the precision runtime: whole-FFN TIPS
+# coverage at the measured 44.8 % workload target by per-sample adaptive
+# spotting, and the fixed spotting with the FFN's middle in INT12
+ADAPTIVE = with_precision(CONFIG, PrecisionPolicy.adaptive())
+PAPER_PRECISION = with_precision(
+    CONFIG, PrecisionPolicy(spotting="fixed", ffn_mid=True))

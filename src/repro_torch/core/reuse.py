@@ -210,6 +210,18 @@ def window_patch_mask(window, resolution: int, patch: int,
     return tuple(mask)
 
 
+def layer_channels(cfg, resolution: int) -> int:
+    """Channel width of the transformer block at ``resolution``: the
+    config's ``channels_at`` hook (every registered denoiser family),
+    else the UNet rule (``latent_size >> i`` is stage i's resolution, on
+    the way down and again on the way up, with ``block_channels[i]``)."""
+    ch_fn = getattr(cfg, "channels_at", None)
+    if callable(ch_fn):
+        return ch_fn(resolution)
+    stage = (cfg.latent_size // resolution).bit_length() - 1
+    return cfg.block_channels[stage]
+
+
 def reuse_cache_zeros(cfg, batch: int, use_cfg: bool,
                       device="cpu") -> ReuseCache:
     """All-invalid cache matching the denoiser's block geometry (the

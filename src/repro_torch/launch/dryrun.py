@@ -6,7 +6,8 @@ host devices and reads XLA's analyses.  A torch rank runs its own program,
 so here the default process group is torch's fake backend
 (``launch.mesh.fake_process_group``: this process is rank 0 of 256 or 512,
 every collective returns at once), the mesh is ``make_production_mesh``,
-and rank 0's real step (``make_train_step(ctx=, zero1=True)``, ``prefill``
+and rank 0's real step (``make_train_step(ctx=, zero1=True)``, or
+``zero3=True`` under ``--fsdp``; ``prefill``
 or ``decode_step`` under a ``ShardCtx``) runs once under ``FakeTensorMode``
 on this rank's shard shapes: nothing is computed and no device memory is
 taken, at full published width.  Each cell records:
@@ -29,15 +30,20 @@ taken, at full published width.  Each cell records:
   includes them; argument + temp is the predicted peak of the step.
 
 The train cell always shards AdamW's moments over the data axes (ZeRO-1,
-the JAX cell's ``zero_spec``).  ZeRO-3 (the JAX package's ``--fsdp``) is
-not ported.  A config with ``use_ssd_kernel=True`` is refused: a ctypes
-kernel cannot run on fake tensors.
+the JAX cell's ``zero_spec``); ``--fsdp`` (ZeRO-3, the fit-memory variant)
+shards the parameters the same way, each layer gathered where it is used
+and its gradient reduce-scattered (``parallel.gather_over_dp``).  Prefill
+and decode cells ignore it, as the JAX package's do.  A config with
+``use_ssd_kernel=True`` is refused: a ctypes kernel cannot run on fake
+tensors.
 
 Usage (the card by default; ``--device cpu`` makes CPU fakes):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b \\
       --shape decode_32k --mesh single
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both \\
       --device cpu --out /tmp/dryrun
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3-8b \\
+      --shape train_4k --fsdp --variant fsdp
 Records are written under ``--out`` only (``dryrun_torch_results/`` at the
 repository root by default), never under ``benchmarks/``.
 """
@@ -67,8 +73,8 @@ from repro_torch.models.parallel import (COLLECTIVES, P, collective_bytes,
                                          collective_counts, mesh_shape,
                                          reset_collective_counts)
 from repro_torch.optim import AdamW
-from repro_torch.optim.adamw import AdamWState
-from repro_torch.train.trainer import make_train_step, zero_plan
+from repro_torch.optim.adamw import AdamWState, zero_slice
+from repro_torch.train.trainer import make_train_step, zero3_plan, zero_plan
 
 RESULTS_DIR = os.path.abspath(os.path.join(
     os.path.dirname(__file__), "..", "..", "..", "dryrun_torch_results"))
@@ -149,14 +155,21 @@ def _fake_mode_active() -> bool:
 
 
 def input_specs(cfg: ArchConfig, shape: ShapeConfig, mesh,
-                tp_fold: bool | None = None, device="cpu"):
+                tp_fold: bool | None = None, device="cpu",
+                fsdp: bool = False):
     """-> (args, specs) for the cell's step on this rank: ``args`` are
     fakes of this rank's shard shapes (the parameters by the executed
     layout, ZeRO-1 moments, its batch rows or its cache), ``specs`` the
     JAX package's PartitionSpec trees for the same arguments (the global
     layout, which the port's executed layout follows where a block splits;
     ``models/ssm.py`` says where it does not).  Call it under
-    ``FakeTensorMode``: it allocates."""
+    ``FakeTensorMode``: it allocates.
+
+    The train state's layout between steps: ZeRO-1 by default, the
+    parameters whole on each data rank (their model shard) and the
+    moments sliced over the data axes; ``fsdp`` (ZeRO-3), the parameters
+    sliced as the moments are (``zero3_plan``), their specs the moments'
+    (JAX: ``psh = mv_sh``).  Prefill and decode ignore ``fsdp``."""
     if not _fake_mode_active():
         raise RuntimeError("input_specs allocates full-size arguments: "
                            "call it under FakeTensorMode")
@@ -179,7 +192,15 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig, mesh,
         dp_total = _mesh_size(mesh) // tp
         mv = _zip_specs(lambda s, a: zero_spec(s, a.shape, dp_total, dps),
                         pspecs, full)
-        state = (params, AdamW().init(params, zero_plan(params, cfg, ctx)),
+        if fsdp:
+            plan = zero3_plan(cfg, ctx)
+            params = tree_util.unflatten(params, (
+                _empty(zero_slice(a, d, plan).shape, a.dtype, device)
+                for a, d in zip(tree_util.leaves(params), plan.dims)))
+            pspecs = mv
+        else:
+            plan = zero_plan(params, cfg, ctx)
+        state = (params, AdamW().init(params, plan),
                  _empty((), torch.float32, device))
         return ((state, batch),
                 ((pspecs, AdamWState(step=P(), m=mv, v=mv), P()),
@@ -224,9 +245,9 @@ def _refuse_kernel(cfg: ArchConfig) -> None:
 
 def step_callable(cfg: ArchConfig, shape: ShapeConfig, mesh,
                   force_m1: bool = False, tp_fold: bool | None = None,
-                  force_m: int | None = None):
-    """The cell's step on this rank: the ZeRO-1 train step, prefill or
-    decode_step under the cell's ``ShardCtx``."""
+                  force_m: int | None = None, fsdp: bool = False):
+    """The cell's step on this rank: the ZeRO-1 train step (ZeRO-3 with
+    ``fsdp``), prefill or decode_step under the cell's ``ShardCtx``."""
     _refuse_kernel(cfg)
     if tp_fold is None:
         tp_fold = choose_tp_fold(cfg, shape, _mesh_size(mesh))
@@ -240,7 +261,7 @@ def step_callable(cfg: ArchConfig, shape: ShapeConfig, mesh,
             m = pick_microbatches(shape.global_batch, ctx.dp_size,
                                   shape.seq_len)
         return make_train_step(cfg, AdamW(), num_microbatches=m, ctx=ctx,
-                               zero1=True)
+                               zero1=not fsdp, zero3=fsdp)
     if shape.kind == "prefill":
         def prefill_fn(params, x):
             with torch.no_grad():
@@ -341,15 +362,17 @@ class _Meter(FlopCounter):
 
 def _trace_cell(cfg: ArchConfig, shape: ShapeConfig, mesh,
                 force_m1: bool = False, force_m: int | None = None,
-                device="cpu", tp_fold: bool | None = None) -> dict:
+                device="cpu", tp_fold: bool | None = None,
+                fsdp: bool = False) -> dict:
     """Run this rank's step once on fakes; return its numbers (the JAX
     package's ``_compile_cell``).  ``tp_fold``: ``choose_tp_fold``'s
-    policy when None."""
+    policy when None; ``fsdp``: the ZeRO-3 train step."""
     t0 = time.perf_counter()
     step = step_callable(cfg, shape, mesh, force_m1=force_m1,
-                         force_m=force_m, tp_fold=tp_fold)
+                         force_m=force_m, tp_fold=tp_fold, fsdp=fsdp)
     with FakeTensorMode():
-        args, _ = input_specs(cfg, shape, mesh, tp_fold, device=device)
+        args, _ = input_specs(cfg, shape, mesh, tp_fold, device=device,
+                              fsdp=fsdp)
         meter = _Meter()
         meter.hold(args)
         arg_bytes = meter.now
@@ -442,12 +465,15 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
              verbose: bool = True, tp_size: int = 16,
              save_coll: bool = False, force_m: int | None = None,
              variant: str = "", kv_int8: bool = False,
-             cfg: ArchConfig | None = None, device="cuda") -> dict:
+             cfg: ArchConfig | None = None, device="cuda",
+             fsdp: bool = False) -> dict:
     """One cell's record, traced on a fake group of 256 (512 with
     ``multi_pod``) ranks that this call starts and ends (no other group
     may be active).  ``cfg`` replaces ``get_arch(arch)`` (a smoke config,
     say); ``device`` is where the fakes claim to live (the card by
-    default)."""
+    default); ``fsdp``: ZeRO-3 (train cells; the record's name follows
+    ``variant`` alone, as the JAX package's does).  ``flops_global`` is
+    the unsharded count either way."""
     resolve_device(device)
     cfg = get_arch(arch) if cfg is None else cfg
     if save_coll:
@@ -471,14 +497,15 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                                              tp_size=tp_size)
         try:
             full = _trace_cell(cfg, shape, mesh, force_m=force_m,
-                               device=device)
+                               device=device, fsdp=fsdp)
             rec.update(full)
             rec["status"] = "ok"
             rec["flops_global"] = flops_cell(cfg, shape, mesh, device,
                                              force_m)
             if not (cfg.family == "hybrid" and shape.kind == "decode"):
                 r1, r2 = (_trace_cell(cfg.scaled(num_layers=n), shape, mesh,
-                                      force_m1=True, device=device)
+                                      force_m1=True, device=device,
+                                      fsdp=fsdp)
                           for n in (1, 2))
                 rec["extrapolated"] = _extrapolate(r1, r2, cfg.num_layers)
             else:
@@ -546,6 +573,9 @@ def main(argv=None) -> list:
                     help="tag for the results file (perf experiments)")
     ap.add_argument("--kv-int8", action="store_true",
                     help="int8 KV cache (decode shapes)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="ZeRO-3: shard the parameters over the data axes "
+                         "(the fit-memory variant; train shapes)")
     ap.add_argument("--out", default=RESULTS_DIR,
                     help="directory of the records (created)")
     ap.add_argument("--device", default="cuda",
@@ -573,7 +603,8 @@ def main(argv=None) -> list:
                         continue
         rec = run_cell(a, s, mp, tp_size=args.tp, save_coll=args.save_coll,
                        force_m=args.force_m, variant=args.variant,
-                       kv_int8=args.kv_int8, device=args.device)
+                       kv_int8=args.kv_int8, device=args.device,
+                       fsdp=args.fsdp)
         save_record(rec, args.out)
         recs.append(rec)
     failures = sum(r["status"] == "error" for r in recs)

@@ -28,7 +28,14 @@ identity.  Under ``remat_save_collectives`` the forward all-reduces of a checkpo
 are recorded, and its recomputation in the backward replays them instead
 of running them again (``collective_tape``, the ``context_fn`` of
 ``torch.utils.checkpoint``; the JAX package names them ``tp_psum_out`` and
-saves them by name).
+saves them by name).  ZeRO-3's data-axis gathers (``gather_over_dp``) are
+never on the tape: a layer's recomputation gathers its weights again, so
+remat keeps a layer's slices only, with or without
+``remat_save_collectives`` (taping a gather would save the whole layer).
+
+ZeRO-3 (``gather_over_dp``, the JAX package's ``fsdp``): a parameter lives
+on its data rank as a slice, and each use gathers the whole value, with
+the data group's mean gradient reduce-scattered back into the slice.
 
 ``Split`` says how a leaf of a full tree is cut into this rank's shard:
 contiguous equal parts along one dimension, optionally followed by a
@@ -88,9 +95,11 @@ def mesh_shape(mesh) -> dict:
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
 _KIND = {"tp_all_reduce": "all-reduce", "tp_all_gather": "all-gather",
-         "dp_all_reduce": "all-reduce", "dp_all_gather": "all-gather"}
+         "dp_all_reduce": "all-reduce", "dp_all_gather": "all-gather",
+         "dp_param_gather": "all-gather", "dp_grad_scatter": "reduce-scatter"}
 _COUNTS = {"tp_all_reduce": 0, "tp_all_gather": 0, "dp_all_reduce": 0,
-           "dp_all_gather": 0, "host_s": 0.0}
+           "dp_all_gather": 0, "dp_param_gather": 0, "dp_grad_scatter": 0,
+           "host_s": 0.0}
 _BYTES = dict.fromkeys(COLLECTIVES, 0)
 _ISSUED = dict.fromkeys(COLLECTIVES, 0)
 
@@ -105,8 +114,9 @@ def reset_collective_counts() -> None:
 def collective_counts() -> dict:
     """Collectives issued since the last reset: model-axis all-reduces and
     all-gathers, data-axis all-reduces and all-gathers (ZeRO-1's
-    parameters), and their summed host seconds (the call, not the device
-    time)."""
+    parameters), ZeRO-3's parameter gathers and gradient scatters
+    (``gather_over_dp``), and their summed host seconds (the call, not the
+    device time)."""
     return dict(_COUNTS)
 
 
@@ -255,6 +265,97 @@ class _DataMean(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None, None
+
+
+def scattered(x: torch.Tensor, dim: int, group, kind: str) -> torch.Tensor:
+    """This rank's part of ``x`` summed over ``group``: ``x`` cut into the
+    group's equal parts along ``dim``, part r reduced onto group rank r
+    (``x`` is untouched).  Counted at ``x``'s bytes, the operand side, as
+    the JAX package counts a reduce-scatter."""
+    parts = [p.contiguous() for p in x.chunk(dist.get_world_size(group),
+                                             dim)]
+    out = torch.empty_like(parts[0])
+    _timed(kind, lambda: dist.reduce_scatter(out, parts, group=group),
+           _nbytes(x))
+    return out
+
+
+class _DataGather(torch.autograd.Function):
+    """ZeRO-3's gather of one parameter over the data group
+    (``gather_over_dp``): the whole value forward, this rank's slice of
+    the data group's mean gradient backward."""
+
+    @staticmethod
+    def forward(ctx, local, dim, layer, zero):
+        ctx.dim, ctx.layer, ctx.zero = dim, layer, zero
+        ctx.shape, ctx.dtype = local.shape, local.dtype
+        if layer is None:
+            return torch.cat(gathered_parts(local, zero.group,
+                                            "dp_param_gather"), dim=dim)
+        if dim == 0:
+            ctx.owner, ctx.row = divmod(layer, local.shape[0])
+            buf = (local[ctx.row].clone(memory_format=torch.contiguous_format)
+                   if zero.rank == ctx.owner
+                   else local.new_empty(local.shape[1:]))
+            _timed("dp_param_gather", lambda: dist.broadcast(
+                buf, group=zero.group, group_src=ctx.owner), _nbytes(buf))
+            return buf
+        return torch.cat(gathered_parts(local[layer], zero.group,
+                                        "dp_param_gather"), dim=dim - 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        z, inv = ctx.zero, 1.0 / ctx.zero.size
+        nil = (None, None, None)
+        if ctx.layer is not None and ctx.dim == 0:
+            acc = grad.to(torch.float32).clone(
+                memory_format=torch.contiguous_format)
+            _timed("dp_grad_scatter", lambda: dist.reduce(
+                acc, group=z.group, group_dst=ctx.owner), _nbytes(acc))
+            if z.rank != ctx.owner:
+                return (None,) + nil
+            out = grad.new_zeros(ctx.shape, dtype=ctx.dtype)
+            out[ctx.row] = (acc * inv).to(ctx.dtype)
+            return (out,) + nil
+        dim = ctx.dim if ctx.layer is None else ctx.dim - 1
+        mine = (scattered(grad.to(torch.float32), dim, z.group,
+                          "dp_grad_scatter") * inv).to(ctx.dtype)
+        if ctx.layer is None:
+            return (mine,) + nil
+        out = grad.new_zeros(ctx.shape, dtype=ctx.dtype)
+        out[ctx.layer] = mine
+        return (out,) + nil
+
+
+def gather_over_dp(local: torch.Tensor, dim, zero, layer: int | None = None
+                   ) -> torch.Tensor:
+    """ZeRO-3: the whole value (this rank's model shard) of a parameter
+    that the data group of ``zero`` (``optim.adamw.Zero``) holds in slices
+    along ``dim``; with ``layer``, of layer ``layer`` of a stacked leaf.
+    ``dim`` None: the leaf is whole on every data rank (layer ``layer`` of
+    it, a view).
+
+    Two cases, by the slice's dimension:
+
+    * inside the layer (a whole leaf, or a stacked one whose layer count
+      the data degree does not divide): all-gather the slices forward;
+      backward, reduce-scatter the gradient into this rank's slice;
+    * the layer axis (a rank owns whole layers): broadcast layer ``layer``
+      from its owner, group rank ``layer // (L / dp)``, forward; backward,
+      reduce its gradient to the owner (every other rank's gradient of the
+      leaf gets nothing from this layer).
+
+    Backward reduces in float32 and takes the mean over the data group,
+    cast back to the parameter's dtype, as ``average_over_dp`` does.
+    Each call is counted as ``dp_param_gather`` / ``dp_grad_scatter``
+    under the JAX package's kinds ``all-gather`` / ``reduce-scatter``: the
+    bytes a rank receives (the whole layer of a broadcast, so that a
+    stack's L broadcasts sum to the stack XLA's all-gather returns) and
+    the whole gradient a scatter or a reduce streams (XLA's
+    reduce-scatter operand)."""
+    if dim is None:
+        return local if layer is None else local[layer]
+    return _DataGather.apply(local, dim, layer, zero)
 
 
 def copy_to_tp(x: torch.Tensor, ctx) -> torch.Tensor:

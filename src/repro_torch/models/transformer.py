@@ -38,14 +38,15 @@ from __future__ import annotations
 import torch
 import torch.utils.checkpoint
 
+from repro_torch import tree as tree_util
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.parallel import (
-    P, Split, collective_tape, copy_to_tp, gather_from_tp, gather_tree,
-    max_over_tp, mean_over_dp, reduce_from_tp, shard_tree, split_ctx,
-    stack_layout)
+    P, Split, collective_tape, copy_to_tp, gather_from_tp, gather_over_dp,
+    gather_tree, max_over_tp, mean_over_dp, reduce_from_tp, shard_tree,
+    split_ctx, stack_layout)
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -408,9 +409,25 @@ def forward(params, cfg: ArchConfig, tokens=None, embeds=None,
 
 
 def _forward(params, cfg: ArchConfig, tokens, embeds, remat: bool,
-             collect_cache: bool, last_logit_only: bool, ctx):
-    """``forward`` with the logits as ``_unembed`` leaves them."""
-    x = _embed(tokens, params["embed"], cfg, ctx) if embeds is None \
+             collect_cache: bool, last_logit_only: bool, ctx, zero=None):
+    """``forward`` with the logits as ``_unembed`` leaves them.  ``zero``
+    (ZeRO-3, ``optim.adamw.Zero`` with ``sliced``): ``params`` are this
+    data rank's slices, and each leaf is gathered whole where it is used
+    (``parallel.gather_over_dp``): the embedding table before the lookup,
+    layer i's leaves at the start of the function that remat checkpoints
+    (its recomputation gathers them again: ``collective_tape`` records
+    model-axis all-reduces only, so with or without
+    ``remat_save_collectives`` a layer's saved inputs are its slices), the
+    final norm and the unembedding where they are applied.  A gathered
+    leaf is the whole leaf: the values are those of the step on whole
+    parameters, bit for bit."""
+    dims = (None if zero is None
+            else tree_util.unflatten(params, zero.dims))
+
+    def whole(key):
+        return (params[key] if zero is None
+                else gather_over_dp(params[key], dims[key], zero))
+    x = _embed(tokens, whole("embed"), cfg, ctx) if embeds is None \
         else embeds
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device)[None].expand(b, t)
@@ -422,35 +439,54 @@ def _forward(params, cfg: ArchConfig, tokens, embeds, remat: bool,
     caches = []
     for i in range(cfg.num_layers):
         ig = _is_global_layer(cfg, i) if cfg.sliding_window else None
-        lp = _layer(params["layers"], i)
+        if zero is None:
+            lp, fn, args = _layer(params["layers"], i), _block_train, ()
+        else:
+            lp, fn, args = params["layers"], _block_gathered, (
+                dims["layers"], i, zero)
         if wrap:
             x, a, cache = torch.utils.checkpoint.checkpoint(
-                _block_train, x, lp, cfg, positions, ig, collect_cache, ctx,
+                fn, x, lp, cfg, positions, ig, collect_cache, ctx, *args,
                 use_reentrant=False, **kw)
         else:
-            x, a, cache = _block_train(x, lp, cfg, positions, is_global=ig,
-                                       collect_cache=collect_cache, ctx=ctx)
+            x, a, cache = fn(x, lp, cfg, positions, ig, collect_cache, ctx,
+                             *args)
         aux = aux + a
         caches.append(cache)
     if last_logit_only:
         x = x[:, -1:, :]
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits, split = _unembed(x, params["unembed"], cfg, ctx)
+    x = L.rms_norm(x, whole("final_norm"), cfg.norm_eps)
+    logits, split = _unembed(x, whole("unembed"), cfg, ctx)
     return logits, aux, (_stack(caches) if collect_cache else None), split
 
 
+def _block_gathered(x, layers, cfg: ArchConfig, positions, is_global,
+                    collect_cache, ctx, dims, i: int, zero):
+    """``_block_train`` of layer ``i`` from the data group's slices of the
+    stacked ``layers`` (ZeRO-3): its leaves gathered whole first."""
+    return _block_train(x, _gathered_layer(layers, dims, i, zero), cfg,
+                        positions, is_global, collect_cache, ctx)
+
+
+def _gathered_layer(tree, dims, i: int, zero):
+    return {k: (_gathered_layer(v, dims[k], i, zero) if isinstance(v, dict)
+                else gather_over_dp(v, dims[k], zero, layer=i))
+            for k, v in tree.items()}
+
+
 def loss_fn(params, batch, cfg: ArchConfig, aux_coef: float = 0.01,
-            remat: bool = True, ctx=None):
+            remat: bool = True, ctx=None, zero=None):
     """Next-token cross-entropy: -> (nll + aux_coef * aux, {"nll", "aux"}).
 
     ``batch`` holds ``labels`` (B, T) and ``tokens`` (B, T) or ``embeds``
     (B, T, d).  The nll is the mean of logsumexp minus the gold logit over
     the float32 logits.  Under ``ctx`` the batch is this rank's rows and
     the nll the data group's mean, with this rank's gradient (the train
-    step averages the gradients over the group)."""
+    step averages the gradients over the group).  ``zero``: ZeRO-3's
+    slices (``_forward``)."""
     logits, aux, _, split = _forward(params, cfg, batch.get("tokens"),
                                      batch.get("embeds"), remat, False,
-                                     False, ctx)
+                                     False, ctx, zero)
     nll = mean_over_dp(_nll(logits, batch["labels"], split, ctx), ctx)
     return nll + aux_coef * aux, {"nll": nll, "aux": aux}
 

@@ -21,6 +21,13 @@ the parameter, and the new parameter is all-gathered over the data group.
 The update is elementwise, so a slice's values are those of the whole
 update; the clip norm is still the whole gradient's (every rank holds the
 data-averaged gradient of its model shard).
+
+ZeRO-3 (``Zero(sliced=True)``, the JAX dry-run's ``fsdp``): the parameters
+and their gradients are this data rank's slices too, between steps as
+well as inside them, so ``update`` takes slices and returns slices (no
+gather).  The clip norm is then the sum of squares of this rank's sliced
+leaves all-reduced over the data group, plus the whole leaves once: the
+rule the model axis already follows.
 """
 from __future__ import annotations
 
@@ -41,13 +48,16 @@ class AdamWState(NamedTuple):
 
 
 class Zero(NamedTuple):
-    """ZeRO-1's split of the moments over a data group: for each leaf in
-    flatten order the dimension it splits along, or None (whole on every
-    data rank); this rank's index in the group and its size."""
+    """ZeRO's split over a data group: for each leaf in flatten order the
+    dimension it splits along, or None (whole on every data rank); this
+    rank's index in the group and its size.  ``sliced``: ZeRO-3, the
+    parameters and gradients are slices too (else ZeRO-1: the moments
+    only)."""
     dims: tuple
     rank: int
     size: int
     group: object
+    sliced: bool = False
 
 
 def zero_dims(params, dp: int, split=None) -> tuple:
@@ -80,6 +90,45 @@ def zero_gather(tree, zero: Zero):
         for a, d in zip(tree_util.leaves(tree), zero.dims)))
 
 
+def _cut_dims(zero: Zero | None, n: int) -> tuple:
+    """The dimension ``init`` / ``update`` cut each leaf along: ZeRO-1's
+    dims; none without ``zero`` or under ZeRO-3 (its leaves are cut)."""
+    if zero is None or zero.sliced:
+        return (None,) * n
+    return zero.dims
+
+
+def _sliced_norm(flat_g, split, tp_group, zero: Zero, sumsq):
+    """ZeRO-3's global norm: the squares of the data-sliced leaves summed
+    over the data group, those of model-axis split parts over the model
+    axis as well, every other part counted once (leaf sums added in
+    flatten order)."""
+    split = split if split is not None else (None,) * len(flat_g)
+    tp = dist.get_world_size(tp_group) if any(split) else 1
+    nil = torch.zeros((), dtype=torch.float32, device=flat_g[0].device)
+    # split parts of sliced leaves (summed over both axes), split parts of
+    # whole leaves (the model axis), the rest of sliced leaves (the data
+    # axis), the rest of whole leaves (counted once)
+    both, tp_only, dp_only, whole = nil, nil, nil, nil
+    for g, s, d in zip(flat_g, split, zero.dims):
+        part, tail = (None, g) if s is None else s.parts(g, tp)
+        if part is not None:
+            if d is None:
+                tp_only = tp_only + sumsq(part)
+            else:
+                both = both + sumsq(part)
+        if tail is not None:
+            if d is None:
+                whole = whole + sumsq(tail)
+            else:
+                dp_only = dp_only + sumsq(tail)
+    if any(split):
+        both, tp_only = all_reduced(torch.stack([both, tp_only]), tp_group,
+                                    "tp_all_reduce").unbind()
+    return torch.sqrt(all_reduced(both + dp_only, zero.group,
+                                  "dp_all_reduce") + tp_only + whole)
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     lr: Callable | float = 3e-4
@@ -91,9 +140,10 @@ class AdamW:
 
     def init(self, params, zero: Zero | None = None) -> AdamWState:
         """Zero moments for ``params``; under ``zero`` this data rank's
-        slices of them."""
+        slices of them (the shapes of ``params`` under ZeRO-3, whose
+        ``params`` are the slices)."""
         flat = tree_util.leaves(params)
-        dims = zero.dims if zero is not None else (None,) * len(flat)
+        dims = _cut_dims(zero, len(flat))
 
         def zeros():
             return tree_util.unflatten(params, (
@@ -111,13 +161,19 @@ class AdamW:
         """-> (new params, new state, the global gradient norm before the
         clip).  ``split``: for each leaf in flatten order, its
         ``parallel.Split`` over ``tp_group`` (this rank holds a shard), or
-        None (whole).  ``zero``: ``state`` holds this data rank's slices
-        of the moments (ZeRO-1); the new parameters are whole."""
+        None (whole).  ``zero``, the layout kept between steps: ZeRO-1
+        (``sliced`` False), ``state`` holds this data rank's slices of the
+        moments, ``grads`` and ``params`` are whole, and the new
+        parameters are gathered whole over the data group; ZeRO-3
+        (``sliced``), ``grads``, ``params`` and ``state`` are all slices,
+        and so are the new parameters (no gather)."""
         flat_g = tree_util.leaves(grads)
 
         def sumsq(g):
             return torch.sum(torch.square(g.to(torch.float32)))
-        if split is None or not any(split):
+        if zero is not None and zero.sliced:
+            gnorm = _sliced_norm(flat_g, split, tp_group, zero, sumsq)
+        elif split is None or not any(split):
             # the global norm, leaf sums added in flatten order
             gnorm = torch.sqrt(sum(sumsq(g) for g in flat_g))
         else:
@@ -151,14 +207,18 @@ class AdamW:
             return newp.to(p.dtype), m2, v2
 
         flat_p = tree_util.leaves(params)
-        dims = zero.dims if zero is not None else (None,) * len(flat_p)
+        dims = _cut_dims(zero, len(flat_p))
         out = [upd(zero_slice(g, d, zero), m, v, zero_slice(p, d, zero))
                for g, m, v, p, d in zip(flat_g, tree_util.leaves(state.m),
                                         tree_util.leaves(state.v), flat_p,
                                         dims)]
         newp = tree_util.unflatten(params, (o[0] for o in out))
-        if zero is not None:
+        if zero is not None and not zero.sliced:
             newp = zero_gather(newp, zero)
         newm = tree_util.unflatten(params, (o[1] for o in out))
         newv = tree_util.unflatten(params, (o[2] for o in out))
         return newp, AdamWState(step=step, m=newm, v=newv), gnorm
+
+
+def adamw(**kw) -> AdamW:
+    return AdamW(**kw)

@@ -8,7 +8,9 @@
   step, and a fresh ``Trainer`` resumes it (bit for bit on the CPU);
 * the data contract is pure in (seed, step) (``data/pipeline.py``), so any
   host can regenerate a slow host's shard;
-* gradient compression: int8 with error feedback (``optim/compression.py``).
+* gradient compression: int8 with error feedback (``optim/compression.py``);
+* ZeRO-1 and ZeRO-3 over the data axes (``make_train_step(zero1=,
+  zero3=)``).
 
 The step runs eagerly (no ``torch.compile``).  On a (data, model) mesh
 (``ctx``, a ``models.layers.ShardCtx``) each rank steps its rows and its
@@ -41,7 +43,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.parallel import (average_over_dp, gather_tree,
                                          leaf_splits, shard_tree)
 from repro_torch.optim import AdamW
-from repro_torch.optim.adamw import AdamWState, Zero, zero_dims
+from repro_torch.optim.adamw import (AdamWState, Zero, zero_dims,
+                                     zero_gather, zero_slice)
 from repro_torch.optim.compression import error_feedback_update
 
 
@@ -57,16 +60,18 @@ class TrainConfig:
 
 
 def _value_and_grad(params, batch, cfg: ArchConfig, aux_coef: float = 0.01,
-                    remat: bool = True, ctx=None):
+                    remat: bool = True, ctx=None, zero=None):
     """(loss, metrics), gradients in each parameter's dtype (as
     ``jax.value_and_grad`` of ``loss_fn``).  The parameters are read
     through detached views that require a gradient: nothing is copied,
     and the caller's tensors are left as they are.  A leaf the loss does not reach (the
-    embedding table of an ``embedding_input`` model) gets zeros."""
+    embedding table of an ``embedding_input`` model) gets zeros.
+    ``zero`` (ZeRO-3): ``params`` are slices, and the gradient of each
+    sliced leaf is already the data group's mean, sliced."""
     leaves = [p.detach().requires_grad_() for p in tree_util.leaves(params)]
     with torch.enable_grad():
         lval, metrics = T.loss_fn(tree_util.unflatten(params, leaves), batch,
-                                  cfg, aux_coef, remat, ctx=ctx)
+                                  cfg, aux_coef, remat, ctx=ctx, zero=zero)
         grads = torch.autograd.grad(lval, leaves, allow_unused=True,
                                     materialize_grads=True)
     metrics = {k: v.detach() for k, v in metrics.items()}
@@ -93,10 +98,89 @@ def zero_plan(params, cfg: ArchConfig, ctx) -> Zero | None:
                 ctx.dp_size, ctx.dp_group)
 
 
+def zero3_plan(cfg: ArchConfig, ctx) -> Zero:
+    """ZeRO-3's split of the parameters, gradients and moments over
+    ``ctx``'s data group: ``zero_dims`` of the model-axis shard's shapes
+    (abstract, no storage), never of the slices a state holds.  Over one
+    data rank too: every leaf's slice is then the whole leaf, and each use
+    still passes through ``gather_over_dp`` on the one-rank group."""
+    shard = T.shard_params(T.abstract_params(cfg), cfg, ctx)
+    split = leaf_splits(shard, T.param_layout(cfg, ctx.tp_size))
+    return Zero(zero_dims(shard, ctx.dp_size, split), ctx.dp_rank,
+                ctx.dp_size, ctx.dp_group, sliced=True)
+
+
+def zero3_slices(state, zero: Zero):
+    """This data rank's ZeRO-3 slices of a train state (params, AdamWState,
+    residual) in the model-axis layout (``state_layout``): copies, so the
+    whole state can be freed; over one data rank the leaves themselves."""
+    def cut(tree):
+        return tree_util.unflatten(tree, (
+            a if zero.size == 1 else zero_slice(a, d, zero).clone(
+                memory_format=torch.contiguous_format)
+            for a, d in zip(tree_util.leaves(tree), zero.dims)))
+    params, opt_state, residual = state
+    return (cut(params), opt_state._replace(m=cut(opt_state.m),
+                                            v=cut(opt_state.v)), residual)
+
+
+def zero3_gather(state, zero: Zero):
+    """The model-axis layout of a ZeRO-3 train state: its slices gathered
+    over the data group (a collective)."""
+    params, opt_state, residual = state
+    return (zero_gather(params, zero), opt_state._replace(
+        m=zero_gather(opt_state.m, zero), v=zero_gather(opt_state.v, zero)),
+        residual)
+
+
+def _average(grads, ctx, zero: Zero | None):
+    """The data group's mean of each leaf of ``grads`` (ZeRO-3: of the
+    whole leaves only; a sliced leaf's gradient is the mean already)."""
+    if zero is None:
+        return average_over_dp(grads, ctx)
+    flat = tree_util.leaves(grads)
+    whole = iter(average_over_dp([g for g, d in zip(flat, zero.dims)
+                                  if d is None], ctx))
+    return tree_util.unflatten(grads, (next(whole) if d is None else g
+                                       for g, d in zip(flat, zero.dims)))
+
+
+def _reduced_grads(params, batch, cfg: ArchConfig, aux_coef: float = 0.01,
+                   num_microbatches: int = 1, ctx=None, zero=None,
+                   remat: bool = True):
+    """(loss, metrics, gradients) of one step before the update: the
+    gradients summed over ``num_microbatches`` and averaged over the data
+    group (``make_train_step``)."""
+    if num_microbatches == 1:
+        (lval, metrics), grads = _value_and_grad(params, batch, cfg,
+                                                 aux_coef, remat, ctx, zero)
+    else:
+        m = num_microbatches
+        parts = {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])
+                 for k, v in batch.items()}
+        gsum = tree_util.tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device), params)
+        lsum = None
+        for i in range(m):
+            (lv, _), g = _value_and_grad(
+                params, {k: v[i] for k, v in parts.items()}, cfg,
+                aux_coef, remat, ctx, zero)
+            gsum = tree_util.tree_map(
+                lambda a, b: a + b.to(torch.float32), gsum, g)
+            lsum = lv if lsum is None else lsum + lv
+        # XLA folds the JAX package's "/ m" into a product by 1 / m
+        inv_m = 1.0 / m
+        grads = tree_util.tree_map(lambda g: g * inv_m, gsum)
+        lval = lsum * inv_m
+        metrics = {"nll": lval, "aux": torch.zeros_like(lval)}
+    return lval, metrics, _average(grads, ctx, zero)
+
+
 def make_train_step(cfg: ArchConfig, opt: AdamW,
                     grad_compression: bool = False,
                     num_microbatches: int = 1, aux_coef: float = 0.01,
-                    ctx=None, zero1: bool = False):
+                    ctx=None, zero1: bool = False, zero3: bool = False):
     """-> f(state, batch) -> (state, metrics); ``state`` is (params,
     AdamWState, residual), ``metrics`` holds ``loss``, ``nll``, ``aux``
     and ``grad_norm`` (float32 scalars on the device).  The loss is
@@ -110,52 +194,50 @@ def make_train_step(cfg: ArchConfig, opt: AdamW,
     ``ctx``: ``state`` holds this rank's shards (``state_layout``) and
     ``batch`` its rows (``SyntheticLMDataset.rank_batch_at``); microbatches
     split the rows, the loss and the gradients are the data group's means,
-    and the grad norm is that of the whole gradient.  ``zero1`` (with
-    ``ctx``, ZeRO-1): the moments are this data rank's slices
-    (``zero_plan``, ``AdamW.init(zero=)``), and the parameters are
-    all-gathered over the data group after each update; over one data
-    rank it changes nothing.
+    and the grad norm is that of the whole gradient.
+
+    The layout kept between steps, with ``ctx``: by default every data
+    rank holds its model shard of the parameters and the moments whole.
+    ``zero1`` (ZeRO-1): the moments are this data rank's slices
+    (``zero_plan``, ``AdamW.init(zero=)``) and the parameters whole, gathered
+    over the data group after each update; over one data rank it changes
+    nothing.  ``zero3`` (ZeRO-3, the JAX dry-run's ``fsdp``): the
+    parameters are slices as well (``zero3_plan``, ``zero3_slices``):
+    each layer gathers its leaves where it is used and reduce-scatters
+    their gradients (``parallel.gather_over_dp``), the leaves no data
+    dimension divides stay whole with their gradients all-reduced, and
+    the update returns slices.  Over one data rank the gathers and
+    scatters still run, on the one-rank group.  Not with
+    ``grad_compression``.
     """
     if zero1 and ctx is None:
         raise ValueError("zero1 shards the moments over a mesh: give ctx")
+    if zero3 and ctx is None:
+        raise ValueError("zero3 shards the parameters over a mesh: give ctx")
+    if zero1 and zero3:
+        raise ValueError("zero1 and zero3: give one (ZeRO-3 slices the "
+                         "moments as ZeRO-1 does)")
+    if zero3 and grad_compression:
+        raise ValueError("zero3 with grad_compression: no JAX entry point "
+                         "compresses a data-sharded gradient, and the int8 "
+                         "scale is per whole leaf, not per slice")
     layout = T.param_layout(cfg, ctx.tp_size) if ctx is not None else None
     tp_group = ctx.tp_group if ctx is not None else None
+    plan = zero3_plan(cfg, ctx) if zero3 else None
 
     def step_fn(state, batch):
         params, opt_state, residual = state
         split = (leaf_splits(params, layout) if layout is not None
                  else None)
-        if num_microbatches == 1:
-            (lval, metrics), grads = _value_and_grad(params, batch, cfg,
-                                                     aux_coef, ctx=ctx)
-        else:
-            m = num_microbatches
-            parts = {k: v.reshape((m, v.shape[0] // m) + v.shape[1:])
-                     for k, v in batch.items()}
-            gsum = tree_util.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), params)
-            lsum = None
-            for i in range(m):
-                (lv, _), g = _value_and_grad(
-                    params, {k: v[i] for k, v in parts.items()}, cfg,
-                    aux_coef, ctx=ctx)
-                gsum = tree_util.tree_map(
-                    lambda a, b: a + b.to(torch.float32), gsum, g)
-                lsum = lv if lsum is None else lsum + lv
-            # XLA folds the JAX package's "/ m" into a product by 1 / m
-            inv_m = 1.0 / m
-            grads = tree_util.tree_map(lambda g: g * inv_m, gsum)
-            lval = lsum * inv_m
-            metrics = {"nll": lval, "aux": torch.zeros_like(lval)}
-
-        grads = average_over_dp(grads, ctx)
+        lval, metrics, grads = _reduced_grads(
+            params, batch, cfg, aux_coef, num_microbatches, ctx, plan)
         if grad_compression:
             grads, residual = error_feedback_update(grads, residual, split,
                                                     tp_group)
+        zero = plan if zero3 else (zero_plan(params, cfg, ctx) if zero1
+                                   else None)
         new_params, new_opt, gnorm = opt.update(
-            grads, opt_state, params, split, tp_group,
-            zero_plan(params, cfg, ctx) if zero1 else None)
+            grads, opt_state, params, split, tp_group, zero)
         metrics = dict(metrics, loss=lval, grad_norm=gnorm)
         return (new_params, new_opt, residual), metrics
 

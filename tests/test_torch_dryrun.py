@@ -20,11 +20,18 @@ Held against the JAX package (its modules imported inside a fixture):
 * ``input_specs``' spec trees against JAX's ``input_specs`` on 256 fake
   host devices (one subprocess, specs only, nothing compiled) for
   llama3-8b x train_4k (ZeRO-1), mamba2-130m x train_4k (TP-fold) and
-  qwen2-moe x decode_32k;
+  qwen2-moe x decode_32k, and ``fsdp=True`` (ZeRO-3) for the train_4k
+  cells of llama3-8b, mamba2-130m and qwen2-moe: the spec trees equal,
+  each fake argument of the shard shape the JAX specs imply (llama3-8b's
+  attention leaves whole over the model axis, as the port runs them), and
+  the arguments ZeRO-1's less exactly the parameters' sliced bytes;
 * ``run_cell`` at smoke widths on a fake 16 x 16 group, one arch a family
   x train / prefill / decode (worker processes, one a family, beside the
   JAX runs), ``long_500k`` skipped for a full-attention arch, and the CLI
-  at llama3-8b's full width.
+  at llama3-8b's full width; ``run_cell(fsdp=True)`` of the moe and ssm
+  train cells and ``--fsdp`` through the CLI (dense, smoke widths) against
+  their ZeRO-1 twins: the same FLOPs, the arguments lower by exactly
+  the sliced parameter bytes times (dp - 1) / dp, the peak lower.
 """
 import concurrent.futures
 import json
@@ -57,6 +64,11 @@ FAMILY_ARCHS = {"dense": "llama3-8b", "moe": "qwen2-moe-a2.7b",
 CELL_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 SPEC_CELLS = (("llama3-8b", "train_4k"), ("mamba2-130m", "train_4k"),
               ("qwen2-moe-a2.7b", "decode_32k"))
+FSDP_SPEC_CELLS = (("llama3-8b", "train_4k"), ("mamba2-130m", "train_4k"),
+                   ("qwen2-moe-a2.7b", "train_4k"))
+# run_cell(fsdp=True) at smoke widths in its own worker; the dense one
+# through the CLI
+FSDP_ARCHS = ("qwen2-moe-a2.7b", "mamba2-130m")
 # FLOP parity geometry: batch 2, two SSD chunks (the chunk is 128) for
 # the SSM families, one layer
 FLOP_BATCH = 2
@@ -96,6 +108,10 @@ out = {}
 for arch, shape in %(cells)r:
     _, shardings = input_specs(get_arch(arch), SHAPES[shape], mesh)
     out[arch + "|" + shape] = plain(shardings)
+for arch, shape in %(fsdp_cells)r:
+    _, shardings = input_specs(get_arch(arch), SHAPES[shape], mesh,
+                               fsdp=True)
+    out[arch + "|" + shape + "|fsdp"] = plain(shardings)
 print("SPECS " + json.dumps(out))
 """
 
@@ -125,6 +141,23 @@ def _cli(out: str) -> list:
                    "--device", "cpu", "--out", out])
 
 
+def _fsdp_cell(arch: str) -> dict:
+    torch.set_num_threads(1)
+    return D.run_cell(arch, "train_4k", False, verbose=False,
+                      cfg=_cell_cfg(arch, "train_4k"), device="cpu",
+                      force_m=1, fsdp=True)
+
+
+def _cli_fsdp(out: str) -> list:
+    """``--fsdp`` through the CLI, its architectures at ``_cell_cfg``'s
+    smoke widths (this worker process's ``get_arch``)."""
+    torch.set_num_threads(1)
+    D.get_arch = lambda a: _cell_cfg(a, "train_4k")
+    return D.main(["--arch", "llama3-8b", "--shape", "train_4k", "--device",
+                   "cpu", "--out", out, "--force-m", "1", "--fsdp",
+                   "--variant", "fsdp"])
+
+
 @pytest.fixture(scope="module")
 def background(tmp_path_factory):
     """The JAX spec subprocess and a pool running the cells and the CLI,
@@ -133,14 +166,17 @@ def background(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     spec = subprocess.Popen(
-        [sys.executable, "-c", _SPEC_SCRIPT % {"cells": SPEC_CELLS}],
+        [sys.executable, "-c", _SPEC_SCRIPT % {
+            "cells": SPEC_CELLS, "fsdp_cells": FSDP_SPEC_CELLS}],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     out = str(tmp_path_factory.mktemp("dryrun_cli"))
     pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=len(FAMILY_ARCHS) + 1,
+        max_workers=len(FAMILY_ARCHS) + len(FSDP_ARCHS) + 2,
         mp_context=multiprocessing.get_context("spawn"))
     cells = {a: pool.submit(_family_cells, a) for a in FAMILY_ARCHS.values()}
     cli = pool.submit(_cli, out)
+    fsdp = {a: pool.submit(_fsdp_cell, a) for a in FSDP_ARCHS}
+    fsdp["llama3-8b"] = pool.submit(_cli_fsdp, out)
     box = {}
 
     def specs():
@@ -151,7 +187,8 @@ def background(tmp_path_factory):
             box["specs"] = json.loads(line[0][6:])
         return box["specs"]
     yield dict(specs=specs, cells=lambda a: cells[a].result(timeout=600),
-               cli=lambda: cli.result(timeout=600), out=out)
+               cli=lambda: cli.result(timeout=600), out=out,
+               fsdp=lambda a: fsdp[a].result(timeout=600))
     pool.shutdown(wait=True, cancel_futures=True)
     if spec.poll() is None:
         spec.kill()
@@ -443,6 +480,84 @@ def test_input_specs_match_jax(background):
     assert cache["k"].shape[1:3] == (8, 32768)
 
 
+def _spec_shard_shape(spec: P, shape: tuple, sizes: dict,
+                      whole_model: bool) -> tuple:
+    """The per-rank shape a JAX spec implies for a leaf of ``shape`` on a
+    mesh of ``sizes``; ``whole_model``: the port runs the leaf whole over
+    the model axis, so the model axis splits nothing."""
+    out = []
+    for i, n in enumerate(shape):
+        e = spec[i] if i < len(spec) else None
+        axes = () if e is None else (e if isinstance(e, tuple) else (e,))
+        out.append(n // math.prod(sizes[a] for a in axes
+                                  if not (whole_model and a == "model")))
+    return tuple(out)
+
+
+def _spec_leaves(t) -> list:
+    if isinstance(t, dict):
+        return [x for k in sorted(t) for x in _spec_leaves(t[k])]
+    if isinstance(t, P):
+        return [t]
+    return [x for v in t for x in _spec_leaves(v)]
+
+
+def _sliced_drop(cfg, shape, mesh) -> int:
+    """Σ over the leaves ZeRO-3 slices of their model-shard bytes times
+    (dp - 1) / dp: what ``--fsdp`` takes off a train cell's arguments."""
+    from repro_torch.train.trainer import zero3_plan
+    ctx = D._ctx(mesh, D.choose_tp_fold(cfg, shape, 256))
+    plan = zero3_plan(cfg, ctx)
+    shard = T.shard_params(T.abstract_params(cfg), cfg, ctx)
+    return sum(a.numel() * a.element_size() // plan.size * (plan.size - 1)
+               for a, d in zip(tree_util.leaves(shard), plan.dims)
+               if d is not None)
+
+
+def test_input_specs_fsdp_match_jax(background):
+    """ZeRO-3's specs and fake arguments: the parameters take the moments'
+    data-sliced specs, every leaf of the parameters and moments has the
+    shard shape the JAX specs imply, and the arguments are ZeRO-1's less
+    the sliced bytes exactly."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models.parallel import leaf_splits
+    want = background["specs"]()
+    with M.fake_process_group(256):
+        mesh = M.make_production_mesh()
+        sizes = M.mesh_shape(mesh)
+        for arch, name in FSDP_SPEC_CELLS:
+            cfg, shape = get_arch(arch), SHAPES[name]
+            tp = 1 if D.choose_tp_fold(cfg, shape, 256) else 16
+            # the leaves the port runs whole over a model axis of tp > 1
+            whole = [s is None and tp > 1 for s in leaf_splits(
+                T.abstract_params(cfg), T.param_layout(cfg, tp))]
+            with FakeTensorMode():
+                args, specs = D.input_specs(cfg, shape, mesh, fsdp=True)
+                zero1, _ = D.input_specs(cfg, shape, mesh)
+                assert json.loads(json.dumps(_plain(specs))) == \
+                    want[f"{arch}|{name}|fsdp"], (arch, name)
+                (params, opt, _), _ = args
+                (pspecs, ospecs, _), _ = specs
+                assert _plain(pspecs) == _plain(ospecs.m)
+                full = tree_util.leaves(T.abstract_params(cfg))
+                odd = 0
+                for tree, st in ((params, pspecs), (opt.m, ospecs.m),
+                                 (opt.v, ospecs.v)):
+                    for a, sp, f, w in zip(tree_util.leaves(tree),
+                                           _spec_leaves(st), full, whole):
+                        split = tuple(a.shape) != _spec_shard_shape(
+                            sp, f.shape, sizes, False)
+                        odd += split
+                        assert tuple(a.shape) == _spec_shard_shape(
+                            sp, f.shape, sizes, w), (arch, sp, a.shape)
+                drop = D._tree_bytes(zero1) - D._tree_bytes(args)
+            # only llama3-8b's wq / wk / wv / wo (8 KV heads at tp 16: the
+            # port's attention is whole) differ from the split JAX shapes
+            assert odd == (12 if arch == "llama3-8b" else 0), (arch, odd)
+            assert drop == _sliced_drop(cfg, shape, mesh) > 0, (arch, drop)
+
+
 # ---------------------------------------------------------------------------
 # run_cell and the CLI
 # ---------------------------------------------------------------------------
@@ -544,3 +659,33 @@ def test_production_mesh_shapes():
                     list(range(0, 512, 16))
     assert not torch.distributed.is_initialized()
     assert math.prod(want.values()) == 512
+
+
+@pytest.mark.parametrize("arch", ("llama3-8b",) + FSDP_ARCHS)
+def test_run_cell_fsdp_against_zero1(background, arch):
+    """``run_cell(fsdp=True)`` (the dense one through ``--fsdp``) against
+    its ZeRO-1 twin (the family's train_4k cell): the same FLOPs, the
+    arguments lower by exactly the sliced parameter bytes, the predicted
+    peak (arguments + temp) lower, gathers and scatters issued."""
+    fam = {v: k for k, v in FAMILY_ARCHS.items()}[arch]
+    twin = background["cells"](arch)["train_4k"]
+    rec = background["fsdp"](arch)
+    if arch == "llama3-8b":
+        (rec,) = rec
+        assert D._record_name(rec).endswith("_train_4k__fsdp.json")
+        assert os.path.exists(os.path.join(background["out"],
+                                           D._record_name(rec)))
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["flops"] == twin["flops"] > 0, fam
+    assert rec["flops_global"] == twin["flops_global"]
+    a, b = rec["memory_analysis"], twin["memory_analysis"]
+    with M.fake_process_group(256):
+        drop = _sliced_drop(_cell_cfg(arch, "train_4k"), SHAPES["train_4k"],
+                            M.make_production_mesh())
+    assert b["argument_size_in_bytes"] - a["argument_size_in_bytes"] == \
+        drop > 0
+    assert a["argument_size_in_bytes"] + a["temp_size_in_bytes"] < \
+        b["argument_size_in_bytes"] + b["temp_size_in_bytes"]
+    counts = rec["collective_bytes"]["counts"]
+    assert counts["reduce-scatter"] > 0 and counts["all-gather"] > 0
+    assert twin["collective_bytes"]["counts"]["reduce-scatter"] == 0

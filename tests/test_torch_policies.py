@@ -450,3 +450,53 @@ def test_engine_takes_the_bundle():
     with pytest.raises(ValueError, match="capacity"):
         DiffusionEngine(bk_sdm.SMOKE, device="cpu", policies=ServePolicies(
             reuse=ServePolicies.parse(reuse="edit", device="cpu").reuse))
+
+
+# ---------------------------------------------------------------------------
+# The config presets and layer_channels against the JAX package's
+# ---------------------------------------------------------------------------
+PRESETS = ("CONFIG", "SMOKE", "FUSED", "SMOKE_FUSED", "ADAPTIVE",
+           "PAPER_PRECISION")
+
+
+@pytest.mark.parametrize("family", ("bk_sdm", "dit_s"))
+def test_config_presets_match_jax(family):
+    """Each preset's policy fields (kernel routing, precision) and
+    geometry equal the JAX package's preset of the same name."""
+    import importlib
+    t_mod = importlib.import_module(f"repro_torch.configs.{family}")
+    j_mod = importlib.import_module(f"repro.configs.{family}")
+    for name in PRESETS:
+        t_unet, j_unet = getattr(t_mod, name).unet, getattr(j_mod, name).unet
+        t_kp, j_kp = t_unet.kernel_policy, j_unet.kernel_policy
+        fields = (*OPS, "tuned", "ffn_quant")
+        assert {f: getattr(t_kp, f) for f in fields} == \
+            {f: getattr(j_kp, f) for f in fields}, name
+        assert t_kp.describe("cpu") == _jax_view(j_kp.describe()), name
+        assert t_unet.precision.describe() == \
+            j_unet.precision.describe(), name
+        assert t_unet.latent_size == j_unet.latent_size, name
+
+
+@pytest.mark.parametrize("family", ("bk_sdm", "dit_s"))
+def test_layer_channels_matches_jax(family):
+    import importlib
+
+    from repro.core.reuse import layer_channels as j_layer_channels
+    from repro_torch.core.reuse import layer_channels
+    for name in ("CONFIG", "SMOKE"):
+        t_unet = getattr(importlib.import_module(
+            f"repro_torch.configs.{family}"), name).unet
+        j_unet = getattr(importlib.import_module(
+            f"repro.configs.{family}"), name).unet
+        assert t_unet.attn_resolutions() == j_unet.attn_resolutions()
+        for res in t_unet.attn_resolutions():
+            assert layer_channels(t_unet, res) == \
+                j_layer_channels(j_unet, res) > 0, (name, res)
+
+    class Plain:            # the UNet rule, no channels_at hook
+        latent_size = 64
+        block_channels = (320, 640, 1280, 1280)
+    assert [layer_channels(Plain, r) for r in (64, 32, 16, 8)] == \
+        [j_layer_channels(Plain, r) for r in (64, 32, 16, 8)] == \
+        [320, 640, 1280, 1280]

@@ -65,7 +65,21 @@ in that one group.  What is held, and how tightly:
 * (g) the collective bytes and counts a dry-run cell's step
   (``launch.dryrun.step_callable``) records when it runs on this gloo
   group equal what ``dryrun._trace_cell`` records for the same cell on a
-  fake (2, 2) group.
+  fake (2, 2) group, the ZeRO-3 train cells (``fsdp=True``) too;
+* (h) ZeRO-3 (``make_train_step(zero3=True)``: the parameters sliced over
+  the data group too, gathered where each layer uses them) against ZeRO-1
+  from the same state and rows, at 2 layers (the data degree divides the
+  layer axis: a rank owns whole layers, broadcast on use) and 3 (the
+  slices lie inside each layer: all-gathered), with and without remat:
+  the loss bit for bit, and each rank's reduced gradient slice bit for
+  bit at one microbatch; at two, within ``MICROBATCH_RTOL`` (1e-6) of the
+  leaf's largest value, since ZeRO-3 reduce-scatters each microbatch's
+  gradient and ZeRO-1 sums a rank's microbatches before it reduces (a
+  float32 sum regrouped: ~1.3e-7 measured; holding the unreduced sum
+  would hold a whole gradient tree); two steps each at 1 and 2
+  microbatches within (f)'s bounds; the data-axis gathers under remat,
+  ``remat_save_collectives`` and neither; and at degree 1 the ZeRO-3
+  step bit for bit the unsharded one.
 """
 import contextlib
 import dataclasses
@@ -91,8 +105,10 @@ from repro_torch.models.layers import ShardCtx
 from repro_torch.optim import AdamW
 from repro_torch.optim.adamw import zero_gather, zero_slice
 from repro_torch.train import TrainConfig, Trainer
-from repro_torch.train.trainer import (_value_and_grad, make_train_step,
-                                       state_layout, zero_plan)
+from repro_torch.train.trainer import (_reduced_grads, _value_and_grad,
+                                       make_train_step, state_layout,
+                                       zero3_gather, zero3_plan,
+                                       zero3_slices, zero_plan)
 
 pytestmark = pytest.mark.filterwarnings(
     "ignore:jax.experimental.shard_map is deprecated:DeprecationWarning")
@@ -105,6 +121,7 @@ LEAF_RTOL = {False: 1e-5, True: 2.0 ** -8}   # keyed by "an SSM's backward
 #                                              reaches the leaf"
 ABOVE_THE_MIXERS = {("unembed",), ("final_norm",)}
 NORM_RTOL = 1e-6
+MICROBATCH_RTOL = 1e-6
 LR = 1e-3
 PARAM_LR_SHARE = 1e-2
 SPAWN_TIMEOUT_S = 240.0
@@ -145,6 +162,10 @@ GRAD_CASES = ("dense_kv2", "dense_v511", "moe_ep", "moe_tp", "ssm",
 JAX_CASES = ("moe_ep", "hybrid")
 DECODE_CASES = ("dense_kv2", "dense_kv1", "moe_ep", "ssm", "hybrid")
 ZERO_CASES = ("dense_kv2", "moe_ep", "ssm", "hybrid")
+# ZeRO-3 cases: name -> (forward case, layers); the data degree 2 divides
+# 2 layers (the broadcast case), not 3 (the all-gather case)
+ZERO3_CASES = {**{k: (k, 2) for k in ZERO_CASES},
+               "dense_kv2_l3": ("dense_kv2", 3), "ssm_l3": ("ssm", 3)}
 # dry-run cells on this group: name -> (arch, shape); the dense cells
 # TP-fold (a small model, the batch divides the 4 ranks)
 TRACE_CELLS = {
@@ -157,6 +178,9 @@ TRACE_CELLS = {
     "dense_prefill": ("llama3-8b", ShapeConfig("smoke_prefill", SEQ, BATCH,
                                                "prefill")),
 }
+# the train cells traced and run again under ZeRO-3 (``fsdp``): moe on
+# (2, 2), its 2 layers over dp 2; dense TP-folded, its 2 layers over dp 4
+FSDP_CELLS = ("moe_train", "dense_train")
 
 
 def _case_cfg(case):
@@ -404,12 +428,99 @@ def _zero_case(cfg, ctx):
                 got_v=_np(full[1].v))
 
 
-def _cell_args(cfg, shape, mesh):
+def _zero3_case(cfg, ctx):
+    """(h): ZeRO-3 against ZeRO-1 from the same state and rows: the loss
+    and the reduced gradients (``_reduced_grads``; ZeRO-1's cut to this
+    rank's slices) at 1 and 2 microbatches, with and without remat; then
+    two steps of each at 1 and 2 microbatches, gathered over both axes."""
+    opt = AdamW(lr=LR)
+    params = _params(cfg)
+    state = (params, opt.init(params), torch.zeros(()))
+    ds = _dataset(cfg)
+    layout = state_layout(cfg, ctx)
+    local = PAR.shard_tree(state, layout, ctx)
+    plan, z1 = zero3_plan(cfg, ctx), zero_plan(local[0], cfg, ctx)
+    sliced = zero3_slices(local, plan)
+    out = dict(dims=plan.dims, z1_dims=z1.dims, paths=_paths(params),
+               share=sum(a.numel() for a in tree_util.leaves(sliced[0]))
+               / sum(a.numel() for a in tree_util.leaves(local[0])),
+               grads={}, steps={})
+    batch = ds.rank_batch_at(0, ctx, device="cpu")
+    for m in (1, 2):
+        for remat in (True, False):
+            l1, _, g1 = _reduced_grads(local[0], batch, cfg, 0.01, m, ctx,
+                                       None, remat)
+            l3, _, g3 = _reduced_grads(sliced[0], batch, cfg, 0.01, m, ctx,
+                                       plan, remat)
+            want = [zero_slice(a, d, plan)
+                    for a, d in zip(tree_util.leaves(g1), plan.dims)]
+            out["grads"][m, remat] = dict(same_loss=torch.equal(l1, l3),
+                                          want=_np(want), got=_np(g3))
+    for m in (1, 2):
+        s1 = (local[0], _zero_moments(local[1], z1), local[2])
+        s3 = sliced
+        step1 = make_train_step(cfg, opt, num_microbatches=m, ctx=ctx,
+                                zero1=True)
+        step3 = make_train_step(cfg, opt, num_microbatches=m, ctx=ctx,
+                                zero3=True)
+        metrics = []
+        for i in range(2):
+            b = ds.rank_batch_at(i, ctx, device="cpu")
+            s1, m1 = step1(s1, b)
+            s3, m3 = step3(s3, b)
+            metrics.append({k: (float(m1[k]), float(m3[k]))
+                            for k in ("loss", "grad_norm")})
+        full1 = PAR.gather_tree((s1[0], s1[1]._replace(
+            m=zero_gather(s1[1].m, z1), v=zero_gather(s1[1].v, z1)), s1[2]),
+            layout, ctx)
+        full3 = PAR.gather_tree(zero3_gather(s3, plan), layout, ctx)
+        out["steps"][m] = dict(
+            metrics=metrics, share=sum(a.numel() for a in tree_util.leaves(
+                s3[0])) / sum(a.numel() for a in tree_util.leaves(s1[0])),
+            ref_params=_np(full1[0]), got_params=_np(full3[0]),
+            ref_m=_np(full1[1].m), got_m=_np(full3[1].m),
+            ref_v=_np(full1[1].v), got_v=_np(full3[1].v))
+    return out
+
+
+def _zero3_remat_case(ctx):
+    """(h): one ZeRO-3 value_and_grad of a 2-layer dense model without
+    remat, with it, and with ``remat_save_collectives``: its data-axis
+    gathers and scatters, its model-axis all-reduces beside ZeRO-1's in
+    the same setting, its gradients, and the counts of sliced leaves."""
+    out = {}
+    for remat, save in ((False, False), (True, False), (True, True)):
+        cfg = _cfg("llama3-8b", remat_save_collectives=save)
+        plan = zero3_plan(cfg, ctx)
+        local = T.shard_params(_params(cfg), cfg, ctx)
+        sliced = zero3_slices((local, AdamW().init(local), None), plan)[0]
+        batch = _dataset(cfg).rank_batch_at(0, ctx, device="cpu")
+        PAR.reset_collective_counts()
+        _, g = _value_and_grad(sliced, batch, cfg, remat=remat, ctx=ctx,
+                               zero=plan)
+        counts = PAR.collective_counts()
+        PAR.reset_collective_counts()
+        _value_and_grad(local, batch, cfg, remat=remat, ctx=ctx)
+        paths = _paths(local)
+        out[remat, save] = dict(
+            gathers=counts["dp_param_gather"],
+            scatters=counts["dp_grad_scatter"],
+            tp=counts["tp_all_reduce"],
+            tp_zero1=PAR.collective_counts()["tp_all_reduce"], grads=_np(g),
+            layer_leaves=sum(d is not None and p[0] == "layers"
+                             for d, p in zip(plan.dims, paths)),
+            other_leaves=sum(d is not None and p[0] != "layers"
+                             for d, p in zip(plan.dims, paths)),
+            layers=cfg.num_layers)
+    return out
+
+
+def _cell_args(cfg, shape, mesh, fsdp=False):
     """Zeros of the shapes a dry-run cell gives this rank (its tokens
     vocabulary index 0)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     with FakeTensorMode():
-        fake, _ = DRY.input_specs(cfg, shape, mesh)
+        fake, _ = DRY.input_specs(cfg, shape, mesh, fsdp=fsdp)
     return tree_util.tree_map(
         lambda a: torch.zeros(a.shape, dtype=a.dtype)
         if isinstance(a, torch.Tensor) else a, fake)
@@ -418,13 +529,16 @@ def _cell_args(cfg, shape, mesh):
 def _executed_records(mesh) -> dict:
     """Each ``TRACE_CELLS`` step run once on this group: what it issued."""
     out = {}
-    for name, (arch, shape) in TRACE_CELLS.items():
+    cells = [(name, False) for name in TRACE_CELLS]
+    cells += [(name, True) for name in FSDP_CELLS]
+    for name, fsdp in cells:
+        arch, shape = TRACE_CELLS[name]
         cfg = _cfg(arch)
-        args = _cell_args(cfg, shape, mesh)
-        step = DRY.step_callable(cfg, shape, mesh)
+        args = _cell_args(cfg, shape, mesh, fsdp)
+        step = DRY.step_callable(cfg, shape, mesh, fsdp=fsdp)
         PAR.reset_collective_counts()
         step(*args)
-        out[name] = PAR.collective_bytes()
+        out[name, fsdp] = PAR.collective_bytes()
     return out
 
 
@@ -446,6 +560,9 @@ def _rank_checks(root):
     out["remat"] = _remat_case(ctx)
     out["ckpt"] = _ckpt_case(ctx, root)
     out["zero"] = {k: _zero_case(_case_cfg(k), ctx) for k in ZERO_CASES}
+    out["zero3"] = {k: _zero3_case(_case_cfg(c).scaled(num_layers=n), ctx)
+                    for k, (c, n) in ZERO3_CASES.items()}
+    out["zero3_remat"] = _zero3_remat_case(ctx)
     out["executed"] = _executed_records(mesh)
     return out
 
@@ -880,4 +997,137 @@ def test_executed_collectives_match_fake_trace(runs, cell):
     if shape.kind == "train":
         assert want["counts"]["all-gather"] > 0       # ZeRO-1's
     for r in runs["ranks"]:
-        assert r["executed"][cell] == want, (cell, r["rank"])
+        assert r["executed"][cell, False] == want, (cell, r["rank"])
+
+
+@pytest.mark.parametrize("cell", FSDP_CELLS)
+def test_zero3_collectives_match_fake_trace(runs, cell):
+    """(g) under ZeRO-3: the gathers and scatters each rank's step issued
+    equal ``_trace_cell(fsdp=True)``'s on a fake (2, 2) group."""
+    arch, shape = TRACE_CELLS[cell]
+    with M.fake_process_group(4):
+        mesh = M.make_elastic_mesh(2)
+        want = DRY._trace_cell(_cfg(arch), shape, mesh,
+                               fsdp=True)["collective_bytes"]
+        zero1 = DRY._trace_cell(_cfg(arch), shape, mesh)["collective_bytes"]
+    assert want["counts"]["reduce-scatter"] > 0
+    assert want["counts"]["all-gather"] > zero1["counts"]["all-gather"]
+    for r in runs["ranks"]:
+        assert r["executed"][cell, True] == want, (cell, r["rank"])
+
+
+def _layer_paths(out):
+    return [p[0] == "layers" for p in out["paths"]]
+
+
+@pytest.mark.parametrize("case", ZERO3_CASES)
+def test_zero3_step_matches_zero1(runs, case):
+    """(h): ZeRO-3 against ZeRO-1: the plan, the loss and the reduced
+    gradient slices, then two steps."""
+    layers = ZERO3_CASES[case][1]
+    ssm = _case_cfg(ZERO3_CASES[case][0]).family in ("ssm", "hybrid")
+    for r in runs["ranks"]:
+        out = r["zero3"][case]
+        assert out["dims"] == out["z1_dims"]
+        stacked = [d for d, lay in zip(out["dims"], _layer_paths(out)) if lay]
+        if layers == 2:         # a rank owns a whole layer of every leaf
+            assert stacked and all(d == 0 for d in stacked), stacked
+        else:                   # slices inside the layer, or none
+            assert 0 not in stacked and any(d is not None for d in stacked)
+        # no rank holds a whole parameter tree, before or after a step
+        assert out["share"] < 0.75, out["share"]
+        for (m, remat), g in out["grads"].items():
+            assert g["same_loss"], (case, m, remat)
+            for path, got, want in zip(out["paths"], g["got"], g["want"]):
+                assert got.shape == want.shape, path
+                if m == 1:
+                    np.testing.assert_array_equal(got, want, err_msg=str(
+                        (case, remat, path)))
+                else:
+                    d = np.abs(got - want).max()
+                    assert d <= MICROBATCH_RTOL * np.abs(want).max(), (
+                        case, remat, path, d)
+        for m, st in out["steps"].items():
+            assert st["share"] < 0.75, st["share"]
+            first, second = st["metrics"]
+            assert first["loss"][0] == first["loss"][1], (case, m)
+            ref, got = second["loss"]
+            assert abs(got - ref) <= STEP_RTOL * abs(ref), (case, m)
+            for step in (first, second):
+                ref, got = step["grad_norm"]
+                assert abs(got - ref) <= GN_RTOL[ssm] * abs(ref), (case, m)
+            _params_close(st["got_params"], st["ref_params"])
+            for key, scale in (("m", 1.0), ("v", 2.0)):
+                for path, got, ref in zip(out["paths"], st[f"got_{key}"],
+                                          st[f"ref_{key}"]):
+                    assert got.shape == ref.shape, path
+                    rtol = scale * (LEAF_RTOL[ssm and path not in
+                                              ABOVE_THE_MIXERS] + GN_RTOL[ssm])
+                    d = np.abs(got - ref).max()
+                    assert d <= rtol * np.abs(ref).max(), (case, key, path, d)
+
+
+def test_zero3_gathers_under_remat(runs):
+    """(h): without remat a layer gathers each sliced leaf once; with remat
+    twice (the forward and the recomputation), with or without
+    ``remat_save_collectives`` (its tape keeps the model-axis all-reduces
+    only, as ZeRO-1's step counts them); one scatter a use either way; the
+    gradients bit-equal across the three."""
+    for r in runs["ranks"]:
+        out = r["zero3_remat"]
+        for (remat, save), o in out.items():
+            per = o["layer_leaves"] * o["layers"]   # a gather a layer
+            assert per > 0 and o["other_leaves"] > 0
+            assert o["gathers"] == (2 if remat else 1) * per + \
+                o["other_leaves"], (remat, save, o["gathers"])
+            assert o["scatters"] == per + o["other_leaves"], (remat, save)
+            assert o["tp"] == o["tp_zero1"] > 0, (remat, save)
+        want = out[False, False]["grads"]
+        for o in out.values():
+            for a, b in zip(o["grads"], want):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch", DEGREE1)
+def test_zero3_degree1_bit_for_bit(arch):
+    """bf16 smoke widths, PSSA / TIPS on, ``remat_save_collectives``: the
+    ZeRO-3 step on the one-rank smoke mesh bit for bit the unsharded step
+    (loss, grad norm, parameters, moments), every leaf through the
+    one-rank gathers and scatters; the slices gather back to the state."""
+    cfg = get_arch(arch).smoke().scaled(remat_save_collectives=True)
+    with _one_rank() as ctx:
+        params = _params(cfg)
+        opt = AdamW(lr=LR)
+        ds = SyntheticLMDataset(vocab_size=cfg.vocab_size, seq_len=SEQ,
+                                global_batch=BATCH, seed=0)
+        state = (params, opt.init(params), torch.zeros(()))
+        batch = ds.batch_at(0, device="cpu")
+        ref = make_train_step(cfg, opt)(state, batch)
+        plan = zero3_plan(cfg, ctx)
+        assert all(d is not None for d in plan.dims)
+        sliced = zero3_slices(state, plan)
+        for a, b in zip(tree_util.leaves(zero3_gather(sliced, plan)),
+                        tree_util.leaves(state)):
+            assert torch.equal(a, b)
+        PAR.reset_collective_counts()
+        got = make_train_step(cfg, opt, ctx=ctx, zero3=True)(sliced, batch)
+        counts = PAR.collective_counts()
+        for x, y in zip(tree_util.leaves(ref), tree_util.leaves(got)):
+            assert torch.equal(x, y)
+        n = len(tree_util.leaves(params["layers"]))
+        assert counts["dp_grad_scatter"] == n * cfg.num_layers + 3
+        assert counts["dp_param_gather"] == 2 * n * cfg.num_layers + 3
+        assert counts["dp_all_gather"] == 0
+
+
+def test_zero3_refusals():
+    cfg = _cfg("llama3-8b")
+    opt = AdamW(lr=LR)
+    with pytest.raises(ValueError, match="give ctx"):
+        make_train_step(cfg, opt, zero3=True)
+    with _one_rank() as ctx:
+        with pytest.raises(ValueError, match="data-sharded gradient"):
+            make_train_step(cfg, opt, grad_compression=True, ctx=ctx,
+                            zero3=True)
+        with pytest.raises(ValueError, match="give one"):
+            make_train_step(cfg, opt, ctx=ctx, zero1=True, zero3=True)
