@@ -16,6 +16,9 @@
 # tree's kernel, through the contiguous 3-D call both trees have.
 # Both trees run this tree's chip_smoke.py against their own
 # src/repro_torch, each built in place.
+# phases: each tree's OWN chip_smoke.py, its kernels, slice and parity
+# phases, in the same order (what a change to those phases' checks costs:
+# each phase prints its seconds); no rows afterwards.
 set -euo pipefail
 here=$(cd "$(dirname "$0")" && pwd)
 parent=$(cd "$1" && pwd)
@@ -47,8 +50,17 @@ c.serve_phase(torch)"
     rows="$prelude
 c.ssd_scan_rows(torch, torch.Generator(device='cuda').manual_seed(5678))"
     what="serve"; rows_what="SSD scan rows" ;;
+  phases)
+    run='import sys, torch
+sys.path = ["src", "."] + [p for p in sys.path if p not in ("", ".")]
+import chip_smoke as c
+c.build_kernels()
+c.kernels_phase(torch)
+c.parity_phase(torch, c.slice_phase(torch)[0])'
+    what="kernels, slice and parity phases"; rows="" ;;
   *)
-    echo "chip_ab.sh: unknown mode $mode (pssa, ssd or cross)" >&2; exit 2 ;;
+    echo "chip_ab.sh: unknown mode $mode (pssa, ssd, cross or phases)" >&2
+    exit 2 ;;
 esac
 for who in parent change change parent; do
   if [ "$who" = parent ]; then cd "$parent"; else cd "$here"; fi
@@ -56,6 +68,7 @@ for who in parent change change parent; do
   python3 -c "$run" "$here"
 done
 for who in parent change; do
+  [ -n "$rows" ] || break
   if [ "$who" = parent ]; then cd "$parent"; else cd "$here"; fi
   echo "=== $rows_what, $who kernel"
   python3 -c "$rows" "$here"

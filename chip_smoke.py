@@ -15,7 +15,10 @@ no result line):
                  timed with the stream held and inputs rotated past the L2,
                  its bound on the 3xTF32 tensor-core basis beside the fp32
                  one, the replaced fp32 kernel's time and the count of
-                 scores its guard band recomputed;
+                 scores its guard band recomputed; at the main row
+                 ``pssa_attention_ref`` bit for bit the stats oracle
+                 (so the kernel's hold on that oracle's nnz holds it too),
+                 and SDPA's time for the output alone;
                  the bit-slice matmul bit-exact under both dataflows at
                  its six shapes, a ragged K = 77 and the int32
                  wrap-around, timed with the stream held and inputs
@@ -35,7 +38,9 @@ no result line):
                  time and the chunked torch route's;
 4. slice       — full-width BK-SDM-Tiny text-to-image, 25 DDIM steps at
                  guidance 7.5, through ``DiffusionEngine.generate`` on the
-                 kernel route; launch counters must read 225/225/450;
+                 kernel route; launch counters must read 225/225/450; the
+                 energy report through ``UNetStats.ledger_fetch`` equal to
+                 a host copy's of every leaf;
 5. mesh        — data-parallel diffusion on a device mesh in one NCCL
                  group of one rank: ``generate`` under ``make_data_mesh(1)``
                  bit-equal to the unsharded engine (images, latents, every
@@ -123,7 +128,10 @@ no result line):
                  slice's route (fused + DBSC) on three seeds, then the
                  reference route against the fused route with temporal
                  reuse; latents, ledger headlines and per-layer PSSA and
-                 reuse counters must agree within the limits below.
+                 reuse counters must agree within the limits below; in
+                 every run the report through ``ledger_fetch`` equals a
+                 host copy's, bit for bit, and in the first the pipeline's
+                 ledger methods equal the module functions.
 16. serve      — mamba2-130m at full width (random weights from a seed)
                  through ``repro_torch.launch.serve.serve``: batch 4, a
                  4096-token prompt, 64 greedy tokens, prefill's scan on the
@@ -660,11 +668,16 @@ def pssa_rows(torch, g) -> dict:
     printed line also gives the fp32-core bound of the same operations and
     the replaced fp32 kernel's time (``PSSA_FP32_MS``, a constant, so not in
     the JSON row), and how many scores the kernel's guard band recomputed
-    in fp32 in the checked launch."""
+    in fp32 in the checked launch.  At the main row it also holds the
+    output-and-nnz oracle (``pssa_attention_ref``) and times
+    ``F.scaled_dot_product_attention`` on the same inputs, as a note: it
+    gives the dense output alone, with no pruning and no counters, so
+    ``library_ms`` stays null."""
+    import torch.nn.functional as F
     from repro_torch.kernels.pssa_attention.kernel import (
         band_count, band_reset, pssa_attention_kernel)
     from repro_torch.kernels.pssa_attention.ref import (
-        pssa_attention_stats_ref)
+        pssa_attention_ref, pssa_attention_stats_ref)
     rows = {}
     # (label, BH, Tq, Tk, d, patch, exact, main)
     for label, bh, tq, tk, d, patch, exact, main in [
@@ -693,6 +706,18 @@ def pssa_rows(torch, g) -> dict:
         plain = pssa_attention_stats_ref(q, k, v, THRESHOLD, patch)
         err = check_pssa(torch, f"pssa_attention {label}", q, k, patch,
                          kern, plain, exact)
+        if main:
+            # the output-and-nnz oracle on the card: the stats oracle's out
+            # and nnz, so check_pssa's hold of the kernel holds it too
+            out_r, nnz_r = pssa_attention_ref(q, k, v, THRESHOLD)
+            require(torch.equal(nnz_r, plain[1])
+                    and nnz_r.dtype == torch.int32
+                    and same_bits(torch, out_r, plain[0]),
+                    f"pssa_attention_ref {label}: out or nnz differs from "
+                    f"the stats oracle's")
+            print(f"  pssa_attention_ref {label}: out and nnz bit for bit "
+                  f"the stats oracle's")
+            del out_r, nnz_r
         ms = rotating_ms(torch, lambda *a: pssa_attention_kernel(
             *a, THRESHOLD, patch), sets, reps=10)
         plain_ms = rotating_ms(torch, lambda *a: pssa_attention_stats_ref(
@@ -700,11 +725,18 @@ def pssa_rows(torch, g) -> dict:
         nbytes, ops = pssa_work(bh, tq, tk, d, plain[1].sum().item())
         fp32 = bound(nbytes, ops, FP32_FLOPS)
         old = PSSA_FP32_MS[label]
+        note = (f"fp32_core_bound_ms={fp32[0]:.4f} "
+                f"fp32_kernel_ms={old} ({ms / old:.3f} of it) "
+                f"band_recomputed={band} of {bh * tq * tk}")
+        if main:
+            sdpa_ms = rotating_ms(torch, F.scaled_dot_product_attention,
+                                  sets, reps=10)
+            note += f" sdpa_out_only_ms={sdpa_ms:.4f}"
         kernel_row(rows, "pssa_attention", label, [bh, tq, tk, d, patch],
                    ms, plain_ms, bound(nbytes, 3.0 * ops, TF32_FLOPS), err,
-                   main, note=f"fp32_core_bound_ms={fp32[0]:.4f} "
-                              f"fp32_kernel_ms={old} ({ms / old:.3f} of it) "
-                              f"band_recomputed={band} of {bh * tq * tk}")
+                   main, note=note)
+        if main:
+            rows["pssa_attention"]["sdpa_out_only_ms"] = sdpa_ms
         del sets, q, k, v, kern, plain
     return rows
 
@@ -2537,6 +2569,11 @@ def slice_phase(torch):
     print("energy_report " + json.dumps(summary))
     require(all(math.isfinite(v) for v in summary.values()),
             "non-finite energy report")
+    host = energy_report(cfg, out.stats.cpu()).summary()
+    require(host == summary, "the energy report through ledger_fetch "
+                             "differs from a host copy's of every leaf")
+    print("energy_report through ledger_fetch equals a host copy's of "
+          "every leaf, key for key")
     def generate():
         eng.generate(toks, uncond_tokens=un, latents=latents.clone())
         return eng.last_wall_s
@@ -5400,8 +5437,11 @@ def parity_phase(torch, eng):
     """
     from repro_torch.configs import bk_sdm
     from repro_torch.core.reuse import ReusePolicy
-    from repro_torch.diffusion.engine import DiffusionEngine
-    from repro_torch.diffusion.pipeline import energy_report
+    from repro_torch.diffusion import (DiffusionEngine,
+                                       StableDiffusionPipeline)
+    from repro_torch.diffusion.pipeline import (energy_report,
+                                                measured_sas_ratios,
+                                                measured_tips_ratio)
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.dispatch import KernelPolicy
 
@@ -5409,6 +5449,26 @@ def parity_phase(torch, eng):
         bk_sdm.CONFIG.ddim, num_inference_steps=2))
     params = {"text": eng.text_params, "unet": eng.unet_params,
               "vae": eng.vae_params}
+    ledger_runs = []
+
+    def hold_ledger_routes(name, cfg, stats, rep):
+        """The report through ledger_fetch equals a host copy's, bit for
+        bit; in the first run the pipeline's ledger methods equal the
+        module functions too."""
+        require(energy_report(cfg, stats.cpu()).summary() == rep,
+                f"{name}: the report through ledger_fetch differs from a "
+                f"host copy's")
+        if not ledger_runs:
+            pipe = StableDiffusionPipeline(cfg, params=params)
+            one = stats.step(0)
+            require(pipe.energy_report(stats).summary() == rep
+                    and pipe.measured_sas_ratios(one)
+                    == measured_sas_ratios(one)
+                    and pipe.measured_tips_ratio(one)
+                    == measured_tips_ratio(one),
+                    f"{name}: the pipeline's ledger methods differ from "
+                    f"the module functions")
+        ledger_runs.append(name)
 
     def run(name, pol, seed, latents=None, reuse=ReusePolicy.off()):
         toks, un = _tokens(torch, base, seed)
@@ -5419,6 +5479,7 @@ def parity_phase(torch, eng):
         e = DiffusionEngine(cfg, params=params)
         out = e.generate(toks, uncond_tokens=un, latents=latents.clone())
         rep = energy_report(cfg, out.stats).summary()
+        hold_ledger_routes(name, cfg, out.stats, rep)
         print(f"{name}, seed {seed}: {e.last_wall_s:.3f} s, "
               f"mj_per_iter_with_ema {rep['mj_per_iter_with_ema']!r}, "
               f"total_ema_reduction {rep['total_ema_reduction']!r}")
@@ -5480,6 +5541,9 @@ def parity_phase(torch, eng):
                                      (ref_r_rep, fus_r_rep)),
           LATENT_ATOL, 1.0, HEADLINES)
     _hold_reuse(torch, ref_r.stats, fus_r.stats, deltas)
+    print(f"the report through ledger_fetch a host copy's, bit for bit in "
+          f"{len(ledger_runs)} runs; pipe.energy_report, measured_sas_ratios "
+          f"and measured_tips_ratio the module functions' in the first")
 
 
 def _hold_reuse(torch, rs, fs, deltas):

@@ -106,6 +106,9 @@ class DiTConfig:
         return (self.token_res,)
 
 
+DIT_S2 = DiTConfig()
+
+
 # ----------------------------------------------------------------------------
 # Parameter init (same shapes and distributions as the JAX package)
 # ----------------------------------------------------------------------------

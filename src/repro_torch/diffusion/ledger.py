@@ -24,7 +24,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Iterable, Optional
 
-from repro_torch.core.energy import EnergyReport, LayerTraffic, report
+from repro_torch.core.energy import (DRAM_PJ_PER_BYTE,  # noqa: F401
+                                     EnergyReport, LayerTraffic, report)
 from repro_torch.diffusion.denoiser import family_of
 from repro_torch.diffusion.unet import UNetConfig
 

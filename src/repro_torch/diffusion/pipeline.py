@@ -21,6 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import energy, pssa
+from repro_torch.core.tips import TIPS_ACTIVE_ITERS  # noqa: F401
 from repro_torch.diffusion import ledger as L
 from repro_torch.diffusion import solvers as solvers_mod
 from repro_torch.diffusion.denoiser import make_denoiser
@@ -28,19 +29,21 @@ from repro_torch.diffusion.sampler import DDIMConfig, sample
 from repro_torch.diffusion.stats import (LedgerAccum, UNetStats,
                                          attn_layer_order,
                                          coerce_per_step_stats)
-from repro_torch.diffusion.text_encoder import (TextEncoderConfig,
+from repro_torch.diffusion.text_encoder import (CLIP_TEXT,
+                                                TextEncoderConfig,
                                                 encode_text,
                                                 init_text_encoder_params)
-from repro_torch.diffusion.unet import UNetConfig
-from repro_torch.diffusion.vae import VAEConfig, decode, init_vae_params
+from repro_torch.diffusion.unet import BK_SDM_TINY, UNetConfig
+from repro_torch.diffusion.vae import (SD_VAE, VAEConfig, decode,
+                                       init_vae_params)
 from repro_torch.kernels.runtime import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    unet: UNetConfig = UNetConfig()   # any denoiser config (UNet or DiT)
-    text: TextEncoderConfig = TextEncoderConfig()
-    vae: VAEConfig = VAEConfig()
+    unet: UNetConfig = BK_SDM_TINY    # any denoiser config (UNet or DiT)
+    text: TextEncoderConfig = CLIP_TEXT
+    vae: VAEConfig = SD_VAE
     ddim: DDIMConfig = DDIMConfig()
 
     @staticmethod
@@ -118,6 +121,19 @@ class StableDiffusionPipeline:
                                 collect_stats=collect_stats)
         return decode(self.vae_params, latents, cfg.vae), stats
 
+    # the ledger, through the module functions (which the engine and the
+    # serving path call without a pipeline object)
+    def measured_sas_ratios(self, stats_one_iter) -> dict:
+        return measured_sas_ratios(stats_one_iter)
+
+    def measured_tips_ratio(self, stats_one_iter) -> float:
+        return measured_tips_ratio(stats_one_iter)
+
+    def energy_report(self, stats_per_iter, full_geometry: bool = True
+                      ) -> "PipelineEnergyReport":
+        return energy_report(self.cfg, stats_per_iter,
+                             full_geometry=full_geometry)
+
 
 def _iter_layer_stats(stats_one_iter: UNetStats, kind: str):
     """Yield (resolution, per-layer stats) of one iteration."""
@@ -173,10 +189,12 @@ def energy_report(cfg: PipelineConfig, stats_per_iter,
 
 
 def _fetch_stats(stats_per_batch) -> list:
-    """Host copies of each call's trajectory, as per-iteration lists."""
+    """Each call's trajectory as per-iteration lists, its ledger leaves
+    copied to the host (``UNetStats.ledger_fetch``)."""
     fetched = []
     for s in stats_per_batch:
-        s = s.cpu() if isinstance(s, UNetStats) else [st.cpu() for st in s]
+        s = (s.ledger_fetch() if isinstance(s, UNetStats)
+             else [st.ledger_fetch() for st in s])
         fetched.append(coerce_per_step_stats(s))
     return fetched
 

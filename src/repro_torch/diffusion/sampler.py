@@ -60,12 +60,6 @@ def timestep_schedule(cfg: DDIMConfig, device="cpu") -> torch.Tensor:
                         device=device) * step
 
 
-def ddim_transfer(latents, eps, a_t, a_prev):
-    """The deterministic DDIM (eta=0) transfer, coefficients pre-gathered."""
-    x0 = (latents - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
-    return torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev) * eps
-
-
 def ddim_step(latents, eps, t, t_prev, acp):
     """One DDIM update; ``t`` / ``t_prev`` are scalars or (B,) per row."""
     t = torch.as_tensor(t, device=acp.device)
@@ -76,7 +70,7 @@ def ddim_step(latents, eps, t, t_prev, acp):
     if a_t.ndim == 1:
         shape = (latents.shape[0],) + (1,) * (latents.ndim - 1)
         a_t, a_prev = a_t.reshape(shape), a_prev.reshape(shape)
-    return ddim_transfer(latents, eps, a_t, a_prev)
+    return solvers_mod.ddim_transfer(latents, eps, a_t, a_prev)
 
 
 def cfg_batch(latents, context, uncond_context):

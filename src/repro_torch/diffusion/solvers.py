@@ -16,7 +16,7 @@
 
 Exactness (DESIGN.md §10): the DDIM columns are gathers of the SAME
 float32 ``alphas_cumprod`` tensor the legacy path uses, on the same
-device, and the transfer is the shared ``sampler.ddim_transfer``, so a
+device, and the transfer is the shared ``ddim_transfer``, so a
 single-policy ``(ddim, 25)`` bank is bit-identical to the policy-free
 path.  A row's arithmetic depends only on its own (solver, steps) pair:
 candidates are computed elementwise for every family in the bank and
@@ -505,6 +505,16 @@ def init_history(bank, batch: int, latent_shape, device="cpu"
                        device=device)
 
 
+def ddim_transfer(latents, eps, a_t, a_prev):
+    """The deterministic DDIM (eta=0) transfer, coefficients pre-gathered.
+
+    Shared by ``sampler.ddim_step`` and every banked candidate (PLMS
+    applies it to its multistep eps), so the paths cannot drift apart.
+    """
+    x0 = (latents - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
+    return torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev) * eps
+
+
 def solver_update(latents, eps, hist, tables: SolverTables, bank,
                   policy_id, idx):
     """One per-row solver step: (new_latents, new_hist).
@@ -515,8 +525,6 @@ def solver_update(latents, eps, hist, tables: SolverTables, bank,
     bank and selected per row, so each row's arithmetic equals a
     single-policy run of its own (solver, steps) pair.
     """
-    from repro_torch.diffusion.sampler import ddim_transfer
-
     bank = as_bank(bank)
     fams = {p.solver for p in bank}
     b = latents.shape[0]

@@ -90,8 +90,32 @@ class UNetStats:
         }
 
     def cpu(self) -> "UNetStats":
-        """Host copy (the ledger reads scalars on the host)."""
+        """Host copy of every leaf."""
         return self.map(lambda x: x.cpu())
+
+    def ledger_fetch(self) -> "UNetStats":
+        """Host copies of the leaves the energy ledger reads, with one wait.
+
+        The ledger reads the PSSA byte counters, the TIPS low-precision
+        ratios and the reuse counters.  Those copies are queued together
+        and waited for once, where a ``float(...)`` in the ledger's loops
+        would wait once a leaf.  The per-row leaves (``important``,
+        ``cas``) stay where they are: the ledger reads only their shapes.
+        The values are copies of the same tensors, so every report equals
+        one from ``cpu()`` bit for bit.
+        """
+        def fetch(x):
+            return x.to("cpu", non_blocking=True)
+        pssa = tuple(_map(fetch, s) for s in self.pssa)
+        tips = tuple(t._replace(low_precision_ratio=fetch(
+            t.low_precision_ratio)) for t in self.tips)
+        reuse = tuple(_map(fetch, r) for r in self.reuse)
+        sources = [x for s in (*self.pssa, *self.reuse) for x in s]
+        sources += [t.low_precision_ratio for t in self.tips]
+        for dev in {x.device for x in sources if x.is_cuda}:
+            torch.cuda.synchronize(dev)
+        return UNetStats(layers=self.layers, pssa=pssa, tips=tips,
+                         reuse=reuse)
 
     @classmethod
     def stack(cls, per_step: list) -> "UNetStats":
@@ -194,21 +218,23 @@ class LedgerAccum:
     reuse_total: torch.Tensor     # (num_buckets, L) int64
 
     @classmethod
-    def zeros(cls, num_buckets: int, num_layers: int,
+    def zeros(cls, num_steps: int, num_layers: int,
               device="cpu") -> "LedgerAccum":
+        """``num_steps`` buckets (a bank's: policies x its largest
+        budget) of ``num_layers`` columns."""
         def z(*shape):
             return torch.zeros(shape, dtype=torch.int64, device=device)
-        return cls(nnz=z(num_buckets, num_layers),
-                   ones_xor=z(num_buckets, num_layers),
-                   imp=z(num_buckets, num_layers), rows=z(num_buckets),
-                   reuse_computed=z(num_buckets, num_layers),
-                   reuse_total=z(num_buckets, num_layers))
+        return cls(nnz=z(num_steps, num_layers),
+                   ones_xor=z(num_steps, num_layers),
+                   imp=z(num_steps, num_layers), rows=z(num_steps),
+                   reuse_computed=z(num_steps, num_layers),
+                   reuse_total=z(num_steps, num_layers))
 
-    def scatter(self, bucket: torch.Tensor, active: torch.Tensor,
+    def scatter(self, step_idx: torch.Tensor, active: torch.Tensor,
                 slot_stats: SlotStats) -> "LedgerAccum":
         """Add one slot step's per-row counters into their buckets.
 
-        ``bucket`` (B,) is each row's bucket for the step just run;
+        ``step_idx`` (B,) is each row's bucket for the step just run;
         ``active`` (B,) masks unoccupied slots, whose counters are zeroed
         BEFORE the add, so occupancy can never move a bucket.  Rows with
         an out-of-range bucket are dropped.
@@ -220,15 +246,15 @@ class LedgerAccum:
         if reuse is None:
             computed, total = self.reuse_computed, self.reuse_total
         else:
-            computed = _bucket_add(self.reuse_computed, bucket,
+            computed = _bucket_add(self.reuse_computed, step_idx,
                                    reuse[0].to(torch.int64) * gate)
-            total = _bucket_add(self.reuse_total, bucket,
+            total = _bucket_add(self.reuse_total, step_idx,
                                 reuse[1].to(torch.int64) * gate)
         return LedgerAccum(
-            nnz=_bucket_add(self.nnz, bucket, nnz),
-            ones_xor=_bucket_add(self.ones_xor, bucket, ones_xor),
-            imp=_bucket_add(self.imp, bucket, imp),
-            rows=_bucket_add(self.rows, bucket, active.to(torch.int64)),
+            nnz=_bucket_add(self.nnz, step_idx, nnz),
+            ones_xor=_bucket_add(self.ones_xor, step_idx, ones_xor),
+            imp=_bucket_add(self.imp, step_idx, imp),
+            rows=_bucket_add(self.rows, step_idx, active.to(torch.int64)),
             reuse_computed=computed, reuse_total=total)
 
 

@@ -30,6 +30,9 @@ class TextEncoderConfig:
                                    d_ff=64)
 
 
+CLIP_TEXT = TextEncoderConfig()
+
+
 def init_text_encoder_params(cfg: TextEncoderConfig, generator=None,
                              device="cpu"):
     """Random parameters with the JAX package's shapes and distributions

@@ -118,6 +118,15 @@ class UNetConfig:
         stage = (self.latent_size // resolution).bit_length() - 1
         return self.block_channels[stage]
 
+    @property
+    def num_down_attn_layers(self) -> int:
+        """Transformer blocks on the down path."""
+        return sum(self.resnets_per_down * self.transformer_depth
+                   for a in self.down_attn if a)
+
+
+BK_SDM_TINY = UNetConfig()
+
 
 # ----------------------------------------------------------------------------
 # Primitive layers

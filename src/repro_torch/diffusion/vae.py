@@ -28,6 +28,9 @@ class VAEConfig:
         return dataclasses.replace(self, channels=(32, 32, 16, 16), groups=8)
 
 
+SD_VAE = VAEConfig()
+
+
 def _resnet_p(ini: _Init, cin, cout):
     p = {"norm1": ini.norm(cin), "conv1": ini.conv(3, 3, cin, cout),
          "norm2": ini.norm(cout), "conv2": ini.conv(3, 3, cout, cout)}

@@ -27,6 +27,7 @@ so ``interpret=`` raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -40,13 +41,6 @@ from repro_torch.kernels.patch_bitmap.ops import (
 from repro_torch.kernels.patch_reuse.ops import patch_delta as _patch_delta_op
 from repro_torch.kernels.runtime import resolve_device
 
-_CHOICES = {
-    "self_attention": ("reference", "fused"),
-    "cross_attention": ("reference", "fused"),
-    "ffn": ("reference", "dbsc"),
-    "bitmap": ("reference", "kernel"),
-    "reuse": ("reference", "kernel"),
-}
 _PRESETS = ("reference", "fused", "auto", "autotuned")
 # the hand-written kernel behind each non-reference implementation
 _KERNELS = {
@@ -233,7 +227,32 @@ def _ffn_dbsc(policy, hn, p, important, precision=None):
         + p["ff_out"]["b"]
 
 
-_FFN = {"reference": _ffn_reference, "dbsc": _ffn_dbsc}
+# op -> implementation -> function, the one list of each op's
+# implementations (``_CHOICES``).  ``ffn_geglu`` dispatches through it, and
+# ``support_matrix`` lists it.
+DISPATCH_TABLE = {
+    "self_attention": {
+        "reference": attention.self_attention_pssa,
+        "fused": attention.self_attention_pssa_fused,
+    },
+    "cross_attention": {
+        "reference": attention.cross_attention_tips,
+        "fused": attention.cross_attention_tips_fused,
+    },
+    "ffn": {
+        "reference": _ffn_reference,
+        "dbsc": _ffn_dbsc,
+    },
+    "bitmap": {
+        "reference": functools.partial(_patch_bitmap_op, use_kernel=False),
+        "kernel": _patch_bitmap_op,
+    },
+    "reuse": {
+        "reference": functools.partial(_patch_delta_op, use_kernel=False),
+        "kernel": _patch_delta_op,
+    },
+}
+_CHOICES = {op: tuple(impls) for op, impls in DISPATCH_TABLE.items()}
 
 
 def self_attention(policy: KernelPolicy, q, k, v, *, patch: int,
@@ -289,7 +308,8 @@ def cross_attention(policy: KernelPolicy, q, k_text, v_text, *,
 
 def ffn_geglu(policy: KernelPolicy, hn, p, important, precision=None):
     """(B, T, C) normed hidden -> (B, T, C) FFN output (pre-residual)."""
-    return _FFN[policy.ffn](policy, hn, p, important, precision)
+    return DISPATCH_TABLE["ffn"][policy.ffn](policy, hn, p, important,
+                                             precision)
 
 
 def patch_bitmap(policy: KernelPolicy, sas, patch: int, threshold: float):
@@ -328,7 +348,7 @@ def support_matrix() -> list:
     kernel's plain PyTorch version; the reference runs native ops on
     either."""
     rows = []
-    for op, impls in _CHOICES.items():
+    for op, impls in DISPATCH_TABLE.items():
         for impl in impls:
             kernel = _KERNELS.get((op, impl))
             rows.append({

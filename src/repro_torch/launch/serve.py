@@ -91,6 +91,9 @@ def main(argv=None):
                     help="int8 KV cache (dense and moe)")
     ap.add_argument("--ssd-kernel", action="store_true",
                     help="prefill through the fused SSD scan kernel")
+    ap.add_argument("--greedy", action="store_true", default=True,
+                    help="greedy decoding (the only decoding there is; "
+                         "accepted so that the JAX command line runs)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)

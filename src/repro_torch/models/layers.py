@@ -72,8 +72,13 @@ class ShardCtx:
                      ("dp_group", dp_group),
                      ("tp_group", self.mesh.get_group(tp) if tp else None),
                      ("tp_rank", int(coord[names.index(tp)]) if tp else 0),
-                     ("tp_size", shape[tp] if tp else 1)):
+                     ("_tp_size", shape[tp] if tp else 1)):
             object.__setattr__(self, k, v)
+
+    @property
+    def tp_size(self) -> int:
+        """Ranks on the model axis (1 under the TP-fold)."""
+        return self._tp_size
 
     @property
     def dp(self):

@@ -347,6 +347,27 @@ SLICE = KernelPolicy(self_attention="fused", cross_attention="fused",
 
 
 @pytest.mark.requires_cuda
+def test_ledger_fetch_leaves_the_row_leaves_on_the_card(cuda):
+    """``UNetStats.ledger_fetch`` copies the ledger's leaves to the host
+    and leaves ``important`` and ``cas`` on the card; the report through
+    it equals the one from a host copy of every leaf, key for key."""
+    from repro_torch.diffusion.pipeline import energy_report
+    cfg = _guided_smoke(SLICE)
+    reqs = _slot_requests(cuda, cfg, 2, 3)
+    out = DiffusionEngine(cfg).generate(
+        torch.cat([r[0] for r in reqs]),
+        uncond_tokens=torch.cat([r[1] for r in reqs]),
+        latents=torch.cat([r[2] for r in reqs]))
+    got = out.stats.ledger_fetch()
+    assert all(x.device.type == "cpu" for s in got.pssa for x in s)
+    for t in got.tips:
+        assert t.important.is_cuda and t.cas.is_cuda
+        assert t.low_precision_ratio.device.type == "cpu"
+    assert (energy_report(cfg, out.stats).summary()
+            == energy_report(cfg, out.stats.cpu()).summary())
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("num_slots", [1, 2, 4])
 def test_smoke_slot_step_goes_through_the_kernels(cuda, num_slots):
     """9 / 9 / 18 launches per slot step under fused CFG at any slot

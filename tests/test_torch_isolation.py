@@ -96,6 +96,28 @@ def test_port_imports_neither_jax_nor_repro():
         assert f"repro_torch.{mod}" in new
 
 
+@pytest.mark.parametrize("root", [
+    "repro_torch.core.policies", "repro_torch.diffusion",
+    "repro_torch.configs.bk_sdm", "repro_torch.kernels.dispatch",
+    "repro_torch.launch.cli"])
+def test_each_root_imports_first_in_a_fresh_interpreter(root):
+    """No import cycle: each of these loads first, with nothing of the
+    port imported before it, and loads neither JAX nor the JAX package
+    (``policies`` -> ``diffusion.solvers`` runs the ``diffusion`` package
+    first, whose exports load on use)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (f"import sys, {root}\n"
+            "from repro_torch.diffusion import DiffusionEngine\n"
+            "from repro_torch.kernels.pssa_attention import "
+            "pssa_attention_ref\n"
+            "print(sorted(n for n in sys.modules if n.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
     + ["chip_smoke.py"]))
